@@ -1,0 +1,144 @@
+"""Build, load and launch-count the package's CUDA kernels.
+
+The kernels live in ``csrc/*.cu`` behind ``extern "C"`` launchers that take
+raw device pointers, sizes and a ``cudaStream_t``. At first use they are
+compiled with a plain ``nvcc -shared`` (no PyTorch headers, so the build
+takes seconds) for ``sm_90a`` into ``csrc/_build/``, under a file lock and
+named by a hash of the sources and flags, then loaded with ``ctypes``.
+A failed build raises; nothing falls back to another implementation.
+
+``LAUNCHES`` counts, per kernel, the launches the wrappers made; each
+wrapper adds one right after its launch succeeds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = CSRC / "_build"
+SOURCES = ("hals_sweeps.cu", "oasis.cu")
+# no --use_fast_math: the HALS mask sentinel (-1e30) and the 1e-12 / 1e-20
+# clamps rely on IEEE division
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
+              "-shared")
+
+KERNELS = ("hals_sweeps", "oasis_chunk_pools", "oasis_pool_merge",
+           "oasis_reconstruct")
+LAUNCHES = {name: 0 for name in KERNELS}
+
+_lock = threading.Lock()
+_lib = None
+build_info: dict = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # U, V, X, cc, gate, lo, hi, free, n_steps, K, d, n_iter, relu, TD, B,
+    # stream
+    "hals_sweeps_launch": [_P] * 9 + [_I] * 6 + [_P],
+    # vinit, g, smin, K, nc, L, v, w, ts, ln, n, stream
+    "oasis_chunk_pools_launch": [_P] * 3 + [_I] * 3 + [_P] * 5 + [_P],
+    # v0, w0, ts0, l0, n_in, g, smin, K, nc, L, v, w, ts, ln, n, stream
+    "oasis_pool_merge_launch": [_P] * 7 + [_I] * 3 + [_P] * 5 + [_P],
+    # v, w, ts, ln, n, g, K, P, T, c, s, stream
+    "oasis_reconstruct_launch": [_P] * 6 + [_I] * 3 + [_P] * 2 + [_P],
+}
+
+
+def reset_launch_counts() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return found
+
+
+def _build(so_path: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lockf:
+        fcntl.flock(lockf, fcntl.LOCK_EX)
+        if so_path.exists():
+            return
+        tmp = so_path.with_name(f"{so_path.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *(str(CSRC / s) for s in SOURCES)]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(tmp, so_path)
+        build_info.update(seconds=time.perf_counter() - t0,
+                          log=res.stdout + res.stderr)
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built from ``csrc/`` on first call."""
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for s in SOURCES:
+            h.update((CSRC / s).read_bytes())
+        so_path = BUILD_DIR / f"libcnmfe_kernels_{h.hexdigest()[:16]}.so"
+        if not so_path.exists():
+            _build(so_path)
+        lib = ctypes.CDLL(str(so_path))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.cnmfe_error_string.argtypes = [ctypes.c_int]
+        lib.cnmfe_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def launch(kernel: str, device, *args) -> None:
+    """Call ``<kernel>_launch`` on ``device``'s current stream; raise on a
+    CUDA error; count the launch. Tensor arguments pass as their data
+    pointers."""
+    import torch
+    lib = load_library()
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in args]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, f"{kernel}_launch")(*args, stream)
+    if err != 0:
+        msg = lib.cnmfe_error_string(err).decode()
+        raise RuntimeError(f"{kernel} launch failed: CUDA error {err} "
+                           f"({msg})")
+    LAUNCHES[kernel] += 1
+
+
+def check_cuda(*tensors, dtypes) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor of its dtype
+    on one device."""
+    dev = tensors[0].device
+    for t, dt in zip(tensors, dtypes):
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"expected CUDA tensors on {dev}, got {t.device}")
+        if t.dtype != dt:
+            raise ValueError(f"expected {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("expected contiguous tensors")

@@ -1,0 +1,62 @@
+"""Background update and evaluation, ring model (port of the ring branch of
+``cnmf_e_tpu/models/background.py``; reference
+``update_background_parallel.m``)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from cnmf_e_tpu.config import CNMFEParams
+from cnmf_e_tpu_torch.models.state import CNMFEState
+from cnmf_e_tpu_torch.ops.ring import (fit_ring_model,
+                                       reconstruct_ring_background)
+
+
+def _check_ring(params: CNMFEParams) -> None:
+    if params.background.model != "ring":
+        raise NotImplementedError(
+            f"background model {params.background.model!r} is not ported")
+
+
+def update_background(Y: torch.Tensor, state: CNMFEState,
+                      params: CNMFEParams,
+                      sn_pix: Optional[torch.Tensor] = None) -> CNMFEState:
+    """Refit the ring background given the current (A, C). Y: (T, H, W)."""
+    _check_ring(params)
+    bp = params.background
+    weights, b0, _ = fit_ring_model(
+        Y, state.masked_A(), state.masked_C(), radius=bp.ring_radius,
+        W_old=state.W, sn=sn_pix, thresh_outlier=bp.thresh_outlier,
+        frame_cap_factor=bp.frame_cap_factor, ridge_eps=bp.ridge_eps,
+        ssub=bp.ssub)
+    return state.replace(W=weights, b0=b0)
+
+
+def background_of(Y: torch.Tensor, state: CNMFEState,
+                  params: CNMFEParams) -> torch.Tensor:
+    """The current background estimate B (T, H, W)."""
+    _check_ring(params)
+    if state.W is None:
+        return torch.broadcast_to(state.b0[None], Y.shape)
+    bp = params.background
+    return reconstruct_ring_background(
+        state.W, Y, state.masked_A(), state.masked_C(), state.b0,
+        radius=bp.ring_radius, ssub=bp.ssub)
+
+
+def subtract_background(Y: torch.Tensor, state: CNMFEState,
+                        params: CNMFEParams) -> torch.Tensor:
+    """Ysignal = Y - B, the input to the factor updates."""
+    return Y - background_of(Y, state, params)
+
+
+def residual_movie(Y: torch.Tensor, state: CNMFEState,
+                   params: CNMFEParams) -> torch.Tensor:
+    """Y - B - A C: the input to the residual neuron pick
+    (``initComponents_residual_parallel.m:189-199``)."""
+    T, H, W = Y.shape
+    A = state.masked_A()
+    AC = (state.masked_C().T @ A.reshape(A.shape[0], -1)).reshape(T, H, W)
+    return subtract_background(Y, state, params) - AC

@@ -1,0 +1,333 @@
+"""Greedy Corr+PNR initialization in batched rounds (port of the
+``ssub = tsub = 1``, ``nk = 1`` path of ``cnmf_e_tpu/models/initialize.py``;
+reference ``greedyROI_endoscope.m``, ``extract_ac.m``).
+
+Each round takes the top local maxima of the Cn * PNR search image (exact
+non-max suppression by a max filter), extracts every seed's footprint and
+trace at once, deconvolves the traces as one batch, accepts the good seeds
+into free neuron slots, peels them from the movie, and refreshes the
+band-passed movie by the rank-N update of the filtered footprints.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from cnmf_e_tpu.config import CNMFEParams
+from cnmf_e_tpu_torch.models.state import CNMFEState, empty_state
+from cnmf_e_tpu_torch.ops.corr import correlation_image
+from cnmf_e_tpu_torch.ops.filters import filter_movie, gaussian_psf
+from cnmf_e_tpu_torch.ops.morphology import (circular_constraint,
+                                             connectivity_constraint)
+from cnmf_e_tpu_torch.ops.noise import (estimate_baseline_noise, noise_psd,
+                                        noise_psd_frames)
+from cnmf_e_tpu_torch.ops.oasis import deconvolve
+from cnmf_e_tpu_torch.ops.stats import (fast_median, fast_median_masked,
+                                        median_mid)
+
+
+class ExtractResult(NamedTuple):
+    a: torch.Tensor        # (N, B, B) footprint inside the box
+    c_raw: torch.Tensor    # (N, T) baseline-subtracted raw trace
+    ok: torch.Tensor       # (N,) success flag
+    sn: torch.Tensor       # (N,) trace noise
+
+
+def _boxes(M: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+           gSiz: int) -> torch.Tensor:
+    """(N, T, B*B) boxes of side B = 2 gSiz + 1 centred at (rows, cols),
+    zero outside the FOV."""
+    B = 2 * gSiz + 1
+    Mp = F.pad(M, (gSiz, gSiz, gSiz, gSiz))
+    off = torch.arange(B, device=M.device)
+    r = (rows[:, None] + off)[:, :, None]                 # (N, B, 1)
+    c = (cols[:, None] + off)[:, None, :]                 # (N, 1, B)
+    box = Mp[:, r, c]                                     # (T, N, B, B)
+    return box.permute(1, 0, 2, 3).reshape(rows.shape[0], M.shape[0], B * B)
+
+
+def extract_ac_batch(HY: torch.Tensor, Y: torch.Tensor, rows: torch.Tensor,
+                     cols: torch.Tensor, gSiz: int, min_pixel: int = 5,
+                     corr_thr: float = 0.9,
+                     bg_corr_thr: float = 0.3) -> ExtractResult:
+    """Batched ``extract_ac`` (``extract_ac.m:19-95``) of every seed.
+
+    HY/Y: (T, H, W) filtered / raw movies; rows/cols: (N,) seed centres.
+    The trace is the mean of the box pixels correlating > corr_thr with the
+    seed; the footprint is the per-pixel LS coefficient on [1, median
+    background, trace]; out-of-FOV pixels have NaN correlation and drop
+    out of both pixel sets."""
+    B = 2 * gSiz + 1
+    hy = _boxes(HY, rows, cols, gSiz)                     # (N, T, P)
+    yy = _boxes(Y, rows, cols, gSiz)
+    y0 = hy[:, :, gSiz * B + gSiz]                        # (N, T)
+    hy_c = hy - hy.mean(dim=1, keepdim=True)
+    y0_c = y0 - y0.mean(dim=1, keepdim=True)
+    denom = (torch.linalg.norm(hy_c, dim=1)
+             * torch.clamp(torch.linalg.norm(y0_c, dim=1), min=1e-12)[:, None])
+    corr = (hy_c.transpose(1, 2) @ y0_c[:, :, None])[..., 0] / torch.where(
+        denom > 0, denom, torch.nan)                      # (N, P)
+    in_mask = corr > corr_thr
+    n_in = in_mask.sum(dim=1)
+    ci = torch.where(in_mask[:, None, :], hy, 0.0).sum(dim=2) / \
+        torch.clamp(n_in, min=1)[:, None]                 # (N, T)
+    y_bg = fast_median_masked(yy, (corr < bg_corr_thr)[:, None, :], dim=2)
+
+    X = torch.stack([torch.ones_like(ci), y_bg, ci], dim=2)     # (N, T, 3)
+    eye = torch.eye(3, dtype=X.dtype, device=X.device)
+    G = X.transpose(1, 2) @ X + 1e-6 * eye
+    coef = torch.linalg.solve(G, X.transpose(1, 2) @ yy)        # (N, 3, P)
+    ai = torch.clamp(coef[:, 2], min=0.0).reshape(-1, B, B)
+    ai = connectivity_constraint(circular_constraint(ai), se_size=3)
+
+    npix = (ai > 0).sum(dim=(1, 2))
+    b_hist, sn_hist = estimate_baseline_noise(ci)
+    sn_psd = noise_psd(ci)
+    med = median_mid(ci, dim=1)[:, None]
+    below = ci < med
+    b_sub = torch.where(below, ci, 0.0).sum(dim=1) / \
+        torch.clamp(below.sum(dim=1), min=1)
+    ci_out = ci - torch.where(sn_hist <= sn_psd, b_hist, b_sub)[:, None]
+    sn = torch.minimum(sn_hist, sn_psd)
+    ok = ((npix >= min_pixel) & (torch.linalg.norm(ci, dim=1) > 0)
+          & torch.isfinite(ai).all(dim=(1, 2))
+          & torch.isfinite(ci_out).all(dim=1))
+    return ExtractResult(a=ai, c_raw=ci_out, ok=ok, sn=sn)
+
+
+def _local_maxima_topk(v: torch.Tensor, n: int, vmin: float, nms_dist: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-n local maxima of v (H, W) that are the maximum within
+    +-nms_dist and above vmin; ties in value go to the lower flat index
+    (``lax.top_k``), and of two exactly tied maxima closer than nms_dist
+    the lower-ranked one is dropped."""
+    H, W = v.shape
+    w = 2 * nms_dist + 1
+    vmax = F.max_pool2d(v[None, None], (w, 1), stride=1,
+                        padding=(nms_dist, 0))
+    vmax = F.max_pool2d(vmax, (1, w), stride=1, padding=(0, nms_dist))[0, 0]
+    is_max = (v >= vmax) & (v > vmin)
+    score = torch.where(is_max, v, -torch.inf).reshape(-1)
+    order = torch.sort(score, descending=True, stable=True)
+    vals, idx = order.values[:n], order.indices[:n]
+    rows, cols = idx // W, idx % W
+    valid = vals > -torch.inf
+    dr = rows[:, None] - rows[None, :]
+    dc = cols[:, None] - cols[None, :]
+    close = (dr * dr + dc * dc) < nms_dist * nms_dist
+    ar = torch.arange(idx.shape[0], device=v.device)
+    lower = ar[:, None] > ar[None, :]
+    conflict = (close & lower & valid[None, :]).any(dim=1)
+    return rows, cols, valid & ~conflict
+
+
+def _weak_signal_test(HY: torch.Tensor, rows: torch.Tensor,
+                      cols: torch.Tensor) -> torch.Tensor:
+    """Seed traces must have max(diff) >= 3 std(diff)
+    (``greedyROI_endoscope.m:286-293``)."""
+    d = torch.diff(HY[:, rows, cols], dim=0)              # (T-1, N)
+    return d.amax(dim=0) >= 3.0 * d.std(dim=0, unbiased=False)
+
+
+def _search_image(HY, Ysig, searched, min_corr, min_pnr):
+    """(Cn, PNR, masked search value) of the current filtered residual."""
+    pnr = HY.amax(dim=0) / torch.clamp(Ysig, min=1e-12)
+    HY_thr = torch.where(HY >= 3.0 * Ysig[None], HY, 0.0)
+    cn = torch.nan_to_num(correlation_image(HY_thr, center=False))
+    v = torch.where((cn < min_corr) | (pnr < min_pnr) | searched, 0.0,
+                    cn * pnr)
+    return cn, pnr, v
+
+
+def _mark_searched(searched, rows, cols, valid):
+    """Mark the valid seed pixels; invalid seeds land in a dropped
+    corner."""
+    H, W = searched.shape
+    s = torch.zeros((H + 1, W + 1), dtype=torch.bool, device=rows.device)
+    s[torch.where(valid, rows, H), torch.where(valid, cols, W)] = True
+    return searched | s[:H, :W]
+
+
+def _place_footprints_masked(A, searched, a_boxes, rows, cols, slots, take,
+                             gSiz: int):
+    """Paste the (N, B, B) boxes into full-FOV images (N, H, W), write
+    them into slots ``slots`` of A (slot K_max = dropped), and mark the
+    core pixels (> half max) of taken seeds as searched."""
+    K, H, W = A.shape
+    N, B, _ = a_boxes.shape
+    dev = A.device
+    pad = torch.zeros((N, H + 2 * gSiz, W + 2 * gSiz), dtype=A.dtype,
+                      device=dev)
+    off = torch.arange(B, device=dev)
+    n_idx = torch.arange(N, device=dev)[:, None, None]
+    pad[n_idx, (rows[:, None] + off)[:, :, None],
+        (cols[:, None] + off)[:, None, :]] = a_boxes
+    full_A = pad[:, gSiz:gSiz + H, gSiz:gSiz + W]
+    A_pad = torch.cat([A, torch.zeros_like(A[:1])])
+    A_pad[slots] = full_A
+    core = (full_A > 0.5 * full_A.amax(dim=(1, 2), keepdim=True)) \
+        & take[:, None, None]
+    return A_pad[:K], searched | core.any(dim=0), full_A
+
+
+def _init_prolog(Y_work: torch.Tensor, gSig: float, center_psf: bool):
+    """Band-pass, per-pixel median centring and per-pixel noise."""
+    HY = filter_movie(Y_work, gaussian_psf(gSig, center_psf))
+    HY = HY - fast_median(HY, dim=0, keepdim=True)
+    return HY, noise_psd_frames(HY)
+
+
+def _scatter_rows(x: torch.Tensor, slots: torch.Tensor,
+                  val: torch.Tensor) -> torch.Tensor:
+    """x with rows ``slots`` set to ``val``; slot len(x) is dropped."""
+    xp = torch.cat([x, torch.zeros_like(x[:1])])
+    xp[slots] = val.to(x.dtype)
+    return xp[:x.shape[0]]
+
+
+def _init_round(state: CNMFEState, HY, Y_work, Ysig, searched, n_found,
+                min_corr, min_pnr, *, psf, gSiz, n_seeds, min_pixel,
+                corr_thr, deconv, nms_dist):
+    """One greedy round: seed search -> extraction -> deconvolution ->
+    acceptance into free slots -> peel -> band-passed movie refresh.
+    Returns (state, Y_work, HY, searched, report (N, 4) [row, col, taken,
+    valid], n_found)."""
+    K_max = state.K_max
+    T = Y_work.shape[0]
+    _, _, v = _search_image(HY, Ysig, searched, min_corr, min_pnr)
+    vmin = float(np.float32(min_corr) * np.float32(min_pnr))
+    rows, cols, valid = _local_maxima_topk(v, n_seeds, vmin, nms_dist)
+    valid = valid & _weak_signal_test(HY, rows, cols)
+    res = extract_ac_batch(HY, Y_work, rows, cols, gSiz,
+                           min_pixel=min_pixel, corr_thr=corr_thr)
+    ok = res.ok & valid
+    N = rows.shape[0]
+    if deconv is not None:
+        dres = deconvolve(res.c_raw, deconv, sn=res.sn)
+        c_use, s_use, g_use = dres.c, dres.s, dres.g
+    else:
+        c_use = torch.clamp(res.c_raw, min=0.0)
+        s_use = torch.zeros_like(res.c_raw)
+        g_use = torch.full((N, 1), 0.9, device=Y_work.device)
+    gp = state.g.shape[1]
+    if g_use.shape[1] < gp:
+        g_use = F.pad(g_use, (0, gp - g_use.shape[1]))
+
+    rank = torch.cumsum(ok.long(), 0) - 1
+    slot = n_found + rank
+    take = ok & (slot < K_max)
+    slots = torch.where(take, slot, K_max)
+    A_new, searched2, full_A = _place_footprints_masked(
+        state.A, searched, res.a, rows, cols, slots, take, gSiz)
+    state = state.replace(
+        A=A_new,
+        C=_scatter_rows(state.C, slots, c_use),
+        C_raw=_scatter_rows(state.C_raw, slots, res.c_raw),
+        S=_scatter_rows(state.S, slots, s_use),
+        g=_scatter_rows(state.g, slots, g_use[:, :gp]),
+        neuron_sn=_scatter_rows(state.neuron_sn, slots, res.sn),
+        active=_scatter_rows(state.active, slots,
+                             torch.ones_like(take)))
+
+    H, W = HY.shape[1:]
+    c_eff = torch.where(take[:, None], c_use, 0.0)
+    Y_new = Y_work - (c_eff.T @ full_A.reshape(N, -1)).reshape(T, H, W)
+    fA = filter_movie(full_A, psf)
+    c_med = torch.where(take, fast_median(c_eff, dim=-1), 0.0)
+    HY_new = HY - ((c_eff - c_med[:, None]).T
+                   @ fA.reshape(N, -1)).reshape(T, H, W)
+    searched2 = _mark_searched(searched2, rows, cols, valid)
+    report = torch.stack([rows, cols, take.long(), valid.long()], dim=1)
+    return (state, Y_new, HY_new, searched2, report,
+            n_found + take.long().sum())
+
+
+def initialize_greedy(Y: torch.Tensor, params: CNMFEParams,
+                      K_max: Optional[int] = None,
+                      state: Optional[CNMFEState] = None,
+                      min_corr: Optional[float] = None,
+                      min_pnr: Optional[float] = None,
+                      verbose: bool = False) -> Tuple[CNMFEState, dict]:
+    """Batched greedy init on a (T, H, W) movie (raw, or the residual
+    Y - AC - B for the residual pick). With ``state`` given, new neurons
+    append into its free slots. Returns (state, info) with the final Cn /
+    PNR maps and the seed log."""
+    ip = params.init
+    if ip.ssub > 1 or ip.tsub > 1 or ip.nk > 1:
+        raise NotImplementedError("init ssub/tsub/nk > 1 is not ported")
+    T, H, W = Y.shape
+    dev = Y.device
+    K_max = K_max or ip.max_neurons
+    gSiz = int(ip.gSiz)
+    if min_corr is None:
+        min_corr = ip.min_corr
+    if min_pnr is None:
+        min_pnr = ip.min_pnr
+    if state is None:
+        state = empty_state(K_max, H, W, T, p=1, device=dev)
+    else:
+        K_max = state.K_max
+    Y_work = Y.to(torch.float32)
+    HY, Ysig = _init_prolog(Y_work, ip.gSig, ip.center_psf)
+
+    searched = torch.zeros((H, W), dtype=torch.bool, device=dev)
+    if ip.bd > 0:
+        bd = ip.bd
+        searched[:bd] = True
+        searched[-bd:] = True
+        searched[:, :bd] = True
+        searched[:, -bd:] = True
+
+    n_found = int(state.active.sum())
+    deconv_cfg = (params.temporal.deconv
+                  if ip.deconv_at_init and params.temporal.deconv.enabled
+                  else None)
+    round_kw = dict(psf=gaussian_psf(ip.gSig, ip.center_psf), gSiz=gSiz,
+                    n_seeds=ip.seeds_per_round,
+                    min_pixel=max(ip.min_pixel, 5),
+                    corr_thr=ip.corr_pixel_thr, deconv=deconv_cfg,
+                    nms_dist=max(gSiz // 2, 4))
+
+    # A round's report is read two rounds after it ran, and the stop test
+    # applies to it then — the JAX package's speculative dispatch order.
+    # The rounds run in the meantime are part of the result.
+    seeds_log = []
+    nf_dev = torch.tensor(n_found, device=dev)
+    pending = []
+    lag = 2
+    stop = False
+    for rnd in range(ip.max_rounds):
+        state, Y_work, HY, searched, report, nf_dev = _init_round(
+            state, HY, Y_work, Ysig, searched, nf_dev, min_corr, min_pnr,
+            **round_kw)
+        pending.append((rnd, report))
+        while pending and (len(pending) > lag or rnd == ip.max_rounds - 1):
+            r, rep = pending.pop(0)
+            rep = rep.cpu().numpy()
+            taken = np.nonzero(rep[:, 2])[0]
+            seeds_log.extend((r, int(rep[i, 0]), int(rep[i, 1]))
+                             for i in taken)
+            n_found += len(taken)
+            if verbose:
+                print(f"init round {r}: +{len(taken)} neurons "
+                      f"(total {n_found})")
+            if len(taken) == 0 or n_found >= K_max:
+                stop = True
+                break
+        if stop:
+            break
+    for r, rep in pending:
+        rep = rep.cpu().numpy()
+        for i in np.nonzero(rep[:, 2])[0]:
+            seeds_log.append((r, int(rep[i, 0]), int(rep[i, 1])))
+            n_found += 1
+
+    cn, pnr, _ = _search_image(HY, Ysig, torch.zeros_like(searched),
+                               min_corr, min_pnr)
+    info = {"Cn": cn, "PNR": pnr, "seeds": seeds_log, "n_found": n_found,
+            "residual_Y": Y_work}
+    return state, info

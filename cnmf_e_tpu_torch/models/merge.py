@@ -1,0 +1,283 @@
+"""Neuron merging (port of ``cnmf_e_tpu/models/merge.py`` for the
+dist_corr, high_corr and dist_only modes; reference
+``merge_neurons_dist_corr.m``, ``merge_high_corr.m``,
+``merge_close_neighbors.m``).
+
+Pairwise statistics are (K, K) matmuls; a cluster is a connected component
+of the candidate graph; each cluster is refit rank-1 (alternating least
+squares, batched over clusters as masked matmuls) into the slot of its
+highest-energy member, whose trace is then re-deconvolved.
+:func:`merge_neurons` finds components on the device (transitive closure
+by repeated squaring); :func:`merge_neurons_seq` fetches the adjacency
+once and uses the host union-find of :mod:`cnmf_e_tpu.native`.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from cnmf_e_tpu.config import CNMFEParams
+from cnmf_e_tpu.native import connected_components
+from cnmf_e_tpu_torch.models.state import CNMFEState
+from cnmf_e_tpu_torch.ops.noise import noise_psd
+from cnmf_e_tpu_torch.ops.oasis import deconvolve
+
+_PLANES = {"dist_corr": 0, "dist_only": 1, "high_corr": 2}
+
+
+def decay_times(state: CNMFEState) -> np.ndarray:
+    """Per-neuron decay time constant (frames), -1 / log(d) of the
+    dominant AR root (``Sources2D.m:585-596``)."""
+    g = state.g.detach().cpu().numpy()
+    if g.shape[1] == 1:
+        d = np.clip(g[:, 0], 1e-4, 1 - 1e-6)
+    else:
+        g1, g2 = g[:, 0], g[:, 1]
+        d = np.clip((g1 + np.sqrt(np.maximum(g1 * g1 + 4 * g2, 0.0))) / 2.0,
+                    1e-4, 1 - 1e-6)
+    return -1.0 / np.log(d)
+
+
+def _corr_rows(X: torch.Tensor) -> torch.Tensor:
+    Xc = X - X.mean(dim=1, keepdim=True)
+    n = torch.linalg.norm(Xc, dim=1) + 1e-12
+    return (Xc @ Xc.T) / torch.outer(n, n)
+
+
+def _merge_stats(state: CNMFEState) -> torch.Tensor:
+    """All pairwise merge statistics, stacked (10, K, K): dist_mean,
+    corr_C, cos_A, corr_Craw, corr_S, energy, active, g1, g2, dist_max
+    (rows 5-8 broadcast per-neuron vectors)."""
+    K = state.K_max
+    A3 = state.masked_A()
+    H, W = A3.shape[1:]
+    dev = A3.device
+    mass = A3.sum(dim=(1, 2)) + 1e-12
+    cy = (A3 * torch.arange(H, dtype=A3.dtype, device=dev)[None, :, None]
+          ).sum(dim=(1, 2)) / mass
+    cx = (A3 * torch.arange(W, dtype=A3.dtype, device=dev)[None, None, :]
+          ).sum(dim=(1, 2)) / mass
+
+    def pair_dist(cy, cx):
+        dy = cy[:, None] - cy[None, :]
+        dx = cx[:, None] - cx[None, :]
+        return torch.sqrt(dy * dy + dx * dx)
+
+    pk = A3.reshape(K, -1).argmax(dim=1)
+    A = A3.reshape(K, -1)
+    na = torch.linalg.norm(A, dim=1) + 1e-12
+    Sdiff = torch.clamp(torch.diff(state.C_raw, dim=1, prepend=torch.zeros(
+        (K, 1), dtype=A3.dtype, device=dev)), min=0.0)
+    corr_S = torch.where((state.S != 0).any(), _corr_rows(state.S),
+                         _corr_rows(Sdiff))
+    energy = (state.A * state.A).sum(dim=(1, 2)) * \
+        (state.C_raw * state.C_raw).sum(dim=1)
+    g2 = (state.g[:, 1] if state.g.shape[1] > 1
+          else torch.zeros(K, dtype=torch.float32, device=dev))
+
+    def row(v):
+        return torch.broadcast_to(v.to(torch.float32)[None, :], (K, K))
+
+    cos_A = (A @ A.T) / torch.outer(na, na)
+    return torch.stack([
+        pair_dist(cy, cx), _corr_rows(state.C), cos_A,
+        _corr_rows(state.C_raw), corr_S, row(energy), row(state.active),
+        row(state.g[:, 0]), row(g2),
+        pair_dist((pk // W).to(A3.dtype), (pk % W).to(A3.dtype))])
+
+
+def _adjacency(state: CNMFEState, params: CNMFEParams, st: torch.Tensor,
+               plane: int) -> torch.Tensor:
+    """Candidate graph of one merge mode over active neurons, zero
+    diagonal: 0 = dist_corr (with the optional decay gate), 1 = dist_only,
+    2 = high_corr."""
+    mp = params.merge
+    K = state.K_max
+    dist = st[9] if mp.method_dist == "max" else st[0]
+    if plane == 0:
+        adj = (dist <= mp.dmin) & (st[1] >= mp.merge_thr)
+        if mp.max_decay_diff is not None:
+            g1, g2 = st[7][0], st[8][0]
+            d = (g1 + torch.sqrt(torch.clamp(g1 * g1 + 4 * g2, min=0.0))) / 2
+            tau = -1.0 / torch.log(torch.clamp(d, 1e-4, 1 - 1e-6))
+            adj &= (tau[:, None] - tau[None, :]).abs() <= mp.max_decay_diff
+    elif plane == 1:
+        adj = dist <= mp.dmin_only
+    else:
+        a_thr, c_thr, s_thr = mp.merge_thr_spatial
+        adj = torch.ones((K, K), dtype=torch.bool, device=st.device)
+        if a_thr > 0:
+            adj &= st[2] >= a_thr
+        if c_thr > 0:
+            adj &= st[3] >= c_thr
+        if s_thr > 0:
+            adj &= st[4] >= s_thr
+    off = ~torch.eye(K, dtype=torch.bool, device=st.device)
+    return adj & torch.outer(state.active, state.active) & off
+
+
+def _merge_adjacency(state: CNMFEState, params: CNMFEParams
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The three candidate graphs (3, K, K) and the energy rank (K,) of
+    every neuron (cluster survivor = highest rank)."""
+    st = _merge_stats(state)
+    adj = torch.stack([_adjacency(state, params, st, p) for p in range(3)])
+    rank = torch.argsort(torch.argsort(st[5][0], stable=True), stable=True)
+    return adj, rank
+
+
+def _cluster_device(state: CNMFEState, params: CNMFEParams, plane: int):
+    """Connected components and cluster bookkeeping on the device:
+    reachability closes by ceil(log2 K) squarings of (adj | I).
+
+    Returns (members (K//2, K) f32, keep (K//2,) survivor slots,
+    valid (K//2,) bool, n_clusters scalar)."""
+    K = state.K_max
+    dev = state.A.device
+    st = _merge_stats(state)
+    adj = _adjacency(state, params, st, plane)
+    R = (adj | torch.eye(K, dtype=torch.bool, device=dev)).to(torch.float32)
+    for _ in range(max(int(np.ceil(np.log2(max(K, 2)))), 1)):
+        R = ((R @ R) > 0).to(torch.float32)
+    comp_min = R.argmax(dim=1)                 # first reachable = root id
+    valid_node = adj.any(dim=1)
+    idx = torch.arange(K, device=dev)
+    root = (comp_min == idx) & valid_node
+    slot_of = (torch.cumsum(root.long(), 0) - 1)[comp_min]
+    Kc = max(K // 2, 1)
+    members = ((slot_of[None, :] == torch.arange(Kc, device=dev)[:, None])
+               & valid_node[None, :]).to(torch.float32)
+    e_m = torch.where(members > 0, st[5][0][None, :], -torch.inf)
+    keep = e_m.argmax(dim=1)
+    valid = (members > 0).any(dim=1)
+    return members, keep, valid, root.sum()
+
+
+def _merge_apply(state: CNMFEState, members: torch.Tensor,
+                 keep: torch.Tensor, valid: torch.Tensor, refit_iters: int
+                 ) -> Tuple[CNMFEState, torch.Tensor]:
+    """Apply all cluster merges: rank-1 refit of each valid cluster
+    (``merge_neurons_dist_corr.m:180-187``) into its survivor slot, other
+    members deactivated. Returns (state, merged_mask (K,) bool of slots
+    holding a freshly merged trace)."""
+    K = state.K_max
+    dev = state.A.device
+    A = state.A.reshape(K, -1)
+    C_raw = state.C_raw
+    a = members @ A
+    c = C_raw[torch.clamp(keep, 0, K - 1)]
+    for _ in range(refit_iters):
+        Wm = members * (C_raw @ c.T).T
+        a = torch.clamp(Wm @ A, min=0.0) / torch.clamp(
+            (c * c).sum(dim=1, keepdim=True), min=1e-12)
+        Vm = members * (A @ a.T).T
+        c = torch.clamp(Vm @ C_raw, min=0.0) / torch.clamp(
+            (a * a).sum(dim=1, keepdim=True), min=1e-12)
+    # invalid clusters scatter into a spare row K that is dropped
+    keep_slot = torch.where(valid, keep, K)
+    member_of_valid = (valid.to(members.dtype) @ members) > 0
+
+    def put(x, val):
+        xp = torch.cat([x, torch.zeros_like(x[:1])])
+        xp[keep_slot] = val
+        return xp[:K]
+
+    active = put(state.active & ~member_of_valid,
+                 torch.ones_like(keep_slot, dtype=torch.bool))
+    merged = put(torch.zeros(K, dtype=torch.bool, device=dev),
+                 torch.ones_like(keep_slot, dtype=torch.bool))
+    zero = ~member_of_valid[:, None]
+    state = state.replace(
+        A=put(torch.where(zero, A, 0.0), a).reshape(state.A.shape),
+        C=put(torch.where(zero, state.C, 0.0), c),
+        C_raw=put(torch.where(zero, C_raw, 0.0), c),
+        S=state.S * active[:, None], active=active)
+    return state, merged
+
+
+def _deconv_writeback(state: CNMFEState, merged_mask, c, s, b, g
+                      ) -> CNMFEState:
+    m = merged_mask[:, None]
+    return state.replace(
+        C=torch.where(m, c, state.C),
+        C_raw=torch.where(m, state.C_raw - b[:, None], state.C_raw),
+        S=torch.where(m, s, state.S),
+        g=torch.where(m, g[:, :state.g.shape[1]], state.g))
+
+
+def _redeconvolve(state: CNMFEState, params: CNMFEParams,
+                  merged_mask: torch.Tensor) -> CNMFEState:
+    sn = noise_psd(state.C_raw)
+    res = deconvolve(state.C_raw, params.temporal.deconv, sn=sn)
+    return _deconv_writeback(state, merged_mask, res.c, res.s, res.b, res.g)
+
+
+def merge_neurons(state: CNMFEState, params: CNMFEParams,
+                  mode: str = "dist_corr", deconv: bool = True
+                  ) -> Tuple[CNMFEState, torch.Tensor]:
+    """Cluster candidates and merge each cluster by rank-1 refit. Returns
+    (state, n_clusters) with n_clusters a device scalar; ``deconv=False``
+    defers re-deconvolution of merged traces to a following temporal
+    update."""
+    members, keep, valid, nm = _cluster_device(state, params, _PLANES[mode])
+    state, merged_mask = _merge_apply(state, members, keep, valid,
+                                      refit_iters=params.merge.refit_iters)
+    if deconv and params.temporal.deconv.enabled:
+        state = _redeconvolve(state, params, merged_mask)
+    return state, nm
+
+
+def _merge_with_adjacency(state: CNMFEState, params: CNMFEParams,
+                          adj: np.ndarray, rank: np.ndarray,
+                          active: np.ndarray, deconv: bool = True
+                          ) -> Tuple[CNMFEState, int]:
+    if not adj.any():
+        return state, 0
+    labels, ncomp = connected_components(adj)
+    K = state.K_max
+    Kc = max(K // 2, 1)
+    members = np.zeros((Kc, K), np.float32)
+    keep = np.zeros((Kc,), np.int64)
+    valid = np.zeros((Kc,), bool)
+    n_merged = 0
+    for comp in range(ncomp):
+        ids = np.nonzero((labels == comp) & active)[0]
+        if len(ids) < 2 or not adj[np.ix_(ids, ids)].any():
+            continue
+        members[n_merged, ids] = 1.0
+        keep[n_merged] = ids[int(np.argmax(rank[ids]))]
+        valid[n_merged] = True
+        n_merged += 1
+    if n_merged == 0:
+        return state, 0
+    dev = state.A.device
+    state, merged_mask = _merge_apply(
+        state, torch.as_tensor(members, device=dev),
+        torch.as_tensor(keep, device=dev), torch.as_tensor(valid, device=dev),
+        refit_iters=params.merge.refit_iters)
+    if deconv and params.temporal.deconv.enabled:
+        state = _redeconvolve(state, params, merged_mask)
+    return state, n_merged
+
+
+def merge_neurons_seq(state: CNMFEState, params: CNMFEParams, modes,
+                      deconv: bool = True) -> Tuple[CNMFEState, int]:
+    """Several merge modes back to back on one adjacency fetch (refetched
+    only after a mode actually merged). Returns (state, total clusters)."""
+    fetched = None
+    total = 0
+    for mode in modes:
+        if fetched is None:
+            adj3, rank = _merge_adjacency(state, params)
+            fetched = (adj3.cpu().numpy(), rank.cpu().numpy(),
+                       state.active.cpu().numpy())
+        adj3, rank, active = fetched
+        state2, nm = _merge_with_adjacency(state, params, adj3[_PLANES[mode]],
+                                           rank, active, deconv=deconv)
+        if nm:
+            state, fetched = state2, None
+        total += nm
+    return state, total

@@ -1,0 +1,56 @@
+"""Correlation image and peak-to-noise ratio maps (port of
+``cnmf_e_tpu/ops/corr.py``; reference ``correlation_image.m:38-77``,
+``correlation_image_endoscope.m:50-96``)."""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from cnmf_e_tpu_torch.ops.filters import (filter_movie, gaussian_psf,
+                                          neighbor_kernel)
+from cnmf_e_tpu_torch.ops.noise import noise_psd_frames
+from cnmf_e_tpu_torch.ops.stats import fast_median
+
+
+def correlation_image(Y: torch.Tensor, kernel: Optional[np.ndarray] = None,
+                      center: bool = True) -> torch.Tensor:
+    """Mean correlation of each pixel with its neighbors. Y: (T, H, W)."""
+    if kernel is None:
+        kernel = neighbor_kernel(1.0, 2.0)
+    if center:
+        Y = Y - Y.mean(dim=0, keepdim=True)
+    denom = torch.sqrt((Y * Y).mean(dim=0, keepdim=True))
+    X = Y / torch.clamp(denom, min=1e-12)
+    kh, kw = kernel.shape
+    ph, pw = kh // 2, kw // 2
+    T, H, W = X.shape
+    Xp = F.pad(X, (pw, kw - 1 - pw, ph, kh - 1 - ph))
+    Xs = torch.zeros_like(X)
+    taps = np.argwhere(kernel != 0)
+    for dy, dx in taps:
+        Xs = Xs + float(kernel[dy, dx]) * Xp[:, dy:dy + H, dx:dx + W]
+    # in-FOV neighbor count per pixel
+    ones = np.zeros((H + kh - 1, W + kw - 1), np.float32)
+    ones[ph:ph + H, pw:pw + W] = 1.0
+    count = np.zeros((H, W), np.float32)
+    for dy, dx in taps:
+        count += kernel[dy, dx] * ones[dy:dy + H, dx:dx + W]
+    count = torch.as_tensor(np.maximum(count, 1.0), device=Y.device)
+    return (Xs * X).mean(dim=0) / count
+
+
+def correlation_pnr(Y: torch.Tensor, gSig: float = 3.0,
+                    center_psf: bool = True, noise_thresh_sig: float = 3.0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Cn, PNR) maps of the band-passed, median-centred movie."""
+    HY = filter_movie(Y, gaussian_psf(gSig, center_psf))
+    HY = HY - fast_median(HY, dim=0, keepdim=True)
+    sn = noise_psd_frames(HY)
+    pnr = HY.amax(dim=0) / torch.clamp(sn, min=1e-12)
+    HY_thr = torch.where(HY >= noise_thresh_sig * sn[None], HY, 0.0)
+    cn = torch.nan_to_num(correlation_image(HY_thr, center=False))
+    return cn, pnr

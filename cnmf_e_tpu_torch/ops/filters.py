@@ -1,0 +1,78 @@
+"""Spatial filtering (port of the parts of ``cnmf_e_tpu/ops/filters.py``
+that ``CNMFE.fit`` reaches).
+
+Movies are (T, H, W). ``filter_movie`` is the JAX package's conv form: an
+edge-padded correlation with the flipped PSF, i.e. a true convolution with
+the PSF (``greedyROI_endoscope.m:104-127``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def gaussian_psf(gSig: float, center_psf: bool = True,
+                 size: int | None = None) -> np.ndarray:
+    """The (possibly center-surround) gaussian PSF as a numpy array: with
+    ``center_psf`` the PSF is restricted to its central disc and
+    mean-subtracted over it (an annulus-subtracted matched filter)."""
+    if gSig <= 0:
+        return np.ones((1, 1), np.float32)
+    if size is None:
+        size = int(np.ceil(gSig * 4 + 1))
+    half = (size - 1) / 2.0
+    y, x = np.mgrid[-half:half + 1, -half:half + 1][:, :size, :size]
+    psf = np.exp(-(x ** 2 + y ** 2) / (2.0 * gSig ** 2))
+    psf /= psf.sum()
+    if center_psf:
+        ind = psf >= psf[:, 0].max()
+        psf = psf - psf[ind].mean()
+        psf[~ind] = 0.0
+    return psf.astype(np.float32)
+
+
+def filter_movie(Y: torch.Tensor, psf: np.ndarray) -> torch.Tensor:
+    """2-D filter each frame of ``Y`` (T, H, W) with replicate padding."""
+    if psf.shape == (1, 1):
+        return Y * float(psf[0, 0])
+    kh, kw = psf.shape
+    ph, pw = kh // 2, kw // 2
+    Yp = F.pad(Y[:, None], (pw, kw - 1 - pw, ph, kh - 1 - ph),
+               mode="replicate")
+    weight = torch.as_tensor(psf[::-1, ::-1].copy(),
+                             device=Y.device)[None, None]
+    return F.conv2d(Yp, weight)[:, 0]
+
+
+def neighbor_kernel(dmin: float = 1.0, dmax: float = 2.0) -> np.ndarray:
+    """Ring-of-neighbors indicator (``correlation_image.m:57-70``):
+    pixels at distance in [dmin, dmax)."""
+    r = int(np.ceil(dmax)) - 1
+    y, x = np.mgrid[-r:r + 1, -r:r + 1]
+    R = np.sqrt(x ** 2 + y ** 2)
+    return ((R >= dmin) & (R < dmax)).astype(np.float32)
+
+
+def box_downsample(Y: torch.Tensor, ssub: int = 1) -> torch.Tensor:
+    """Spatial box down-sampling of a (T, H, W) movie (``dsData.m:33-43``);
+    a ragged edge is edge-padded into the last bin."""
+    if ssub <= 1:
+        return Y
+    T, H, W = Y.shape
+    Hs, Ws = -(-H // ssub), -(-W // ssub)
+    Yp = F.pad(Y[:, None], (0, Ws * ssub - W, 0, Hs * ssub - H),
+               mode="replicate")[:, 0]
+    return Yp.reshape(T, Hs, ssub, Ws, ssub).mean(dim=(2, 4))
+
+
+def resize_linear(X: torch.Tensor, out_hw) -> torch.Tensor:
+    """Bilinear resize of the last two axes with half-pixel centres — the
+    ``jax.image.resize(..., method="linear")`` upsample (edge samples take
+    the border value)."""
+    lead = X.shape[:-2]
+    Xf = X.reshape((-1, 1) + tuple(X.shape[-2:]))
+    out = F.interpolate(Xf, size=tuple(out_hw), mode="bilinear",
+                        align_corners=False)
+    return out.reshape(lead + tuple(out_hw))

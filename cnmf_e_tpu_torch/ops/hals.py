@@ -1,0 +1,95 @@
+"""HALS block-coordinate updates for the spatial (A) and temporal (C)
+factors (port of ``cnmf_e_tpu/ops/hals.py``; reference
+``HALS_spatial.m:26-46`` and ``HALS_temporal.m:58-107``).
+
+The Grams U and V are plain matmuls; the sweeps run in the HALS kernel
+(:mod:`cnmf_e_tpu_torch.ops.hals_kernels`) on row-major factors. The
+public functions keep the JAX package's (d, K) layout.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from cnmf_e_tpu_torch.ops.coloring import (class_step_schedule,
+                                           greedy_color, overlap_adjacency)
+from cnmf_e_tpu_torch.ops.hals_kernels import hals_sweeps
+
+
+_BLOCK = 64                 # rows per sweep step of one colour class
+
+
+def hals_spatial_sweeps(U: torch.Tensor, V: torch.Tensor, A: torch.Tensor,
+                        mask: torch.Tensor, schedule: Tuple,
+                        n_iter: int = 5) -> torch.Tensor:
+    """Gauss-Seidel spatial sweeps given U = Y C^T (d, K) and
+    V = C C^T (K, K); A, mask: (d, K), columns in colored order."""
+    out = hals_sweeps(U.T, V, A.T,
+                      gate=torch.ones(A.shape[1], device=A.device),
+                      schedule=schedule, mask=mask.T, n_iter=n_iter,
+                      block=_BLOCK, relu=True)
+    return out.T
+
+
+def hals_temporal_sweeps(U: torch.Tensor, V: torch.Tensor, C: torch.Tensor,
+                         schedule: Tuple, n_iter: int = 5,
+                         active: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Gauss-Seidel temporal sweeps given U = A^T Y (K, T) and V = A^T A,
+    rows in colored order; rows with ``active`` False keep their traces."""
+    gate = (torch.ones(C.shape[0], device=C.device) if active is None
+            else active)
+    return hals_sweeps(U, V, C, gate=gate, schedule=schedule, n_iter=n_iter,
+                       block=_BLOCK, relu=False)
+
+
+def _colored(coupling_adj: torch.Tensor):
+    """(order, inverse, schedule) of the greedy colouring of an overlap
+    graph: rows of one class become contiguous and share sweep steps."""
+    colors = greedy_color(coupling_adj)
+    order = torch.argsort(colors, stable=True)
+    inverse = torch.argsort(order)
+    return order, inverse, class_step_schedule(colors[order], block=_BLOCK)
+
+
+def hals_spatial(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
+                 mask: torch.Tensor, n_iter: int = 5) -> torch.Tensor:
+    """Update A given C: A <- max(0, A + (U - A V) / diag(V)) per neuron,
+    with means removed from Y and C (``HALS_spatial.m:28-32``).
+
+    Y: (d, T); A: (d, K); C: (K, T); mask: (d, K) search locations.
+    Neurons are ordered by a greedy colouring of the mask-overlap graph so
+    non-overlapping neurons share a sweep step (``update_order.m:1-21``);
+    the JAX package's ``colored=True``."""
+    T = Y.shape[-1]
+    Ymean = Y.mean(dim=1, keepdim=True)
+    Cmean = C.mean(dim=1, keepdim=True)
+    U = Y @ C.T - T * (Ymean @ Cmean.T)                     # (d, K)
+    V = C @ C.T - T * (Cmean @ Cmean.T)                     # (K, K)
+    order, inverse, sched = _colored(overlap_adjacency(mask.T))
+    out = hals_spatial_sweeps(U[:, order], V[order][:, order], A[:, order],
+                              mask[:, order], sched, n_iter=n_iter)
+    return out[:, inverse]
+
+
+def hals_temporal(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
+                  n_iter: int = 5, active: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Update C given A: c_k <- c_k + (U_k - V_k C) / aa_k (no
+    deconvolution). Y: (d, T); A: (d, K); C: (K, T). Returns
+    (C_raw, aa = diag(A^T A)).
+
+    Neurons are ordered by a greedy colouring of the footprint overlap
+    graph (disjoint footprints give exact-zero V entries); the JAX
+    package's ``colored=True``."""
+    U = A.T @ Y                                             # (K, T)
+    V = A.T @ A                                             # (K, K)
+    K = V.shape[0]
+    adj = (V != 0) & ~torch.eye(K, dtype=torch.bool, device=V.device)
+    order, inverse, sched = _colored(adj)
+    act = None if active is None else active[order]
+    out = hals_temporal_sweeps(U[order], V[order][:, order], C[order],
+                               sched, n_iter=n_iter, active=act)
+    return out[inverse], torch.diagonal(V)

@@ -1,0 +1,117 @@
+"""Morphological ops and shape priors, batched over neurons (port of the
+parts of ``cnmf_e_tpu/ops/morphology.py`` that ``CNMFE.fit`` reaches;
+reference ``circular_constraints.m``, ``connectivity_constraint.m``,
+``determine_search_location.m`` 'dilate')."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def disc_kernel(radius: int) -> np.ndarray:
+    y, x = np.mgrid[-radius:radius + 1, -radius:radius + 1]
+    return ((x ** 2 + y ** 2) <= radius ** 2).astype(np.float32)
+
+
+_CROSS = np.array([[0, 1, 0], [1, 1, 1], [0, 1, 0]], np.float32)
+_CHECK_EVERY = 16           # propagation steps between fixed-point checks
+
+
+def _maxpool(x: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
+    """Max-filter of (..., H, W) by a structuring element; out-of-image
+    samples never win."""
+    kh, kw = kernel.shape
+    ph, pw = kh // 2, kw // 2
+    lead = x.shape[:-2]
+    H, W = x.shape[-2:]
+    x4 = x.reshape((-1, 1, H, W))
+    if np.all(kernel > 0) and kh % 2 == 1 and kw % 2 == 1:
+        out = F.max_pool2d(x4, (kh, kw), stride=1, padding=(ph, pw))
+        return out.reshape(x.shape)
+    neg = torch.finfo(x.dtype).min
+    xp = F.pad(x4, (pw, kw - 1 - pw, ph, kh - 1 - ph), value=neg)
+    out = None
+    for dy, dx in np.argwhere(kernel > 0):
+        s = xp[..., dy:dy + H, dx:dx + W]
+        out = s if out is None else torch.maximum(out, s)
+    return out.reshape(lead + (H, W))
+
+
+def dilate(mask: torch.Tensor, radius: int) -> torch.Tensor:
+    """Binary dilation of (..., H, W) by a disc."""
+    return _maxpool(mask.to(torch.float32), disc_kernel(radius)) > 0.5
+
+
+def opening(img: torch.Tensor, size: int = 5) -> torch.Tensor:
+    """Grayscale opening with a square structuring element."""
+    k = np.ones((size, size), np.float32)
+    return _maxpool(-_maxpool(-img, k), k)
+
+
+def label_from_seed(mask: torch.Tensor, seed_row: torch.Tensor,
+                    seed_col: torch.Tensor) -> torch.Tensor:
+    """The 4-connected component of ``mask`` (..., H, W) containing
+    (seed_row, seed_col), by iterated neighbor-max propagation.
+
+    Runs the JAX package's H + W propagation steps, but stops early once a
+    block of ``_CHECK_EVERY`` steps changes nothing: the propagation is
+    then at its fixed point and further steps return the same mask."""
+    H, W = mask.shape[-2:]
+    n_iter = H + W
+    m = mask.to(torch.float32)
+    seed = (F.one_hot(seed_row.long(), H).to(torch.float32)[..., :, None]
+            * F.one_hot(seed_col.long(), W).to(torch.float32)[..., None, :])
+    reach = seed * m
+    done = 0
+    while done < n_iter:
+        prev = reach
+        for _ in range(min(_CHECK_EVERY, n_iter - done)):
+            reach = torch.minimum(_maxpool(reach, _CROSS), m)
+        done += _CHECK_EVERY
+        if torch.equal(reach, prev):
+            break
+    return reach > 0.5
+
+
+def _peak_rc(img: torch.Tensor):
+    W = img.shape[-1]
+    flat_arg = img.reshape(img.shape[:-2] + (-1,)).argmax(dim=-1)
+    return flat_arg // W, flat_arg % W
+
+
+def connectivity_constraint(img: torch.Tensor, thr: float = 0.01,
+                            se_size: int = 5) -> torch.Tensor:
+    """Keep only the peak-connected blob of each footprint (..., H, W):
+    open, threshold at thr * max, keep the component holding the peak."""
+    opened = opening(img, se_size)
+    peak = img.amax(dim=(-2, -1), keepdim=True)
+    core = opened > torch.clamp(peak * thr, min=1e-12)
+    pr, pc = _peak_rc(img)
+    keep = label_from_seed(core, pr, pc)
+    return torch.where(keep, img, 0.0)
+
+
+def circular_constraint(img: torch.Tensor) -> torch.Tensor:
+    """Zero dim pixels whose gradient points away from the peak, then keep
+    the peak's (dilated) connected component."""
+    H, W = img.shape[-2:]
+    pr, pc = _peak_rc(img)
+    vmax = img.amax(dim=(-2, -1), keepdim=True)
+    fy, fx = torch.gradient(img, dim=(-2, -1))
+    yy = torch.arange(H, dtype=img.dtype, device=img.device)[:, None]
+    xx = torch.arange(W, dtype=img.dtype, device=img.device)[None, :]
+    dy = pr.to(img.dtype)[..., None, None] - yy
+    dx = pc.to(img.dtype)[..., None, None] - xx
+    bad = ((fx * dx + fy * dy) < 0) & (img < vmax / 3.0)
+    out = torch.where(bad, 0.0, img)
+    keep = dilate(label_from_seed(out > 0, pr, pc), 1)
+    return torch.where(keep, out, 0.0)
+
+
+def search_locations_dilate(A: torch.Tensor, radius: int = 4,
+                            thr: float = 0.0) -> torch.Tensor:
+    """'dilate' search masks: grow each footprint's support by a disc."""
+    peak = A.amax(dim=(-2, -1), keepdim=True)
+    return dilate(A > torch.clamp(thr * peak, min=0.0), radius)

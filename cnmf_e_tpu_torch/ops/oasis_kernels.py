@@ -1,0 +1,204 @@
+"""The three OASIS AR(1) kernels of the divide-and-conquer solve, their
+plain PyTorch versions, and the dispatch (port of
+``cnmf_e_tpu/ops/pallas_oasis.py``).
+
+  * :func:`oasis_chunk_pools`  pass 1: the sample-level pool stack on every
+    length-L chunk of every trace (replaces ``_oasis_pools_pallas``);
+  * :func:`oasis_pool_merge`   pass 2: push the chunk pool lists in order
+    and resolve violations across chunks (replaces ``_pool_merge_pallas``);
+  * :func:`oasis_reconstruct`  pools -> (c, s) (replaces
+    ``_reconstruct_pallas``).
+
+CUDA tensors launch the kernels in ``csrc/oasis.cu``; CPU tensors run the
+``*_reference`` versions, which execute the same per-lane algorithm in
+lockstep over lanes. Pool arrays hold (v, w, t0, len) per slot; slots at or
+past a lane's count hold (0, 1, 0, 0).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from cnmf_e_tpu_torch.cuda_build import check_cuda, launch
+
+Pools = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+              torch.Tensor]
+
+_f32, _i32 = torch.float32, torch.int32
+
+
+def _logg(g: torch.Tensor) -> torch.Tensor:
+    return torch.log(torch.clamp(g, min=1e-10))
+
+
+def _check_shapes(*pairs) -> None:
+    for t, shape in pairs:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"expected shape {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+
+
+def _empty_pools(shape, device):
+    return (torch.zeros(shape, dtype=_f32, device=device),
+            torch.ones(shape, dtype=_f32, device=device),
+            torch.zeros(shape, dtype=_i32, device=device),
+            torch.zeros(shape, dtype=_i32, device=device))
+
+
+# --------------------------------------------------------------------- #
+# plain versions: one stack per lane, all lanes in lockstep
+# --------------------------------------------------------------------- #
+def _merge_top(v, w, ln, n, logg, smin, cand):
+    """Merge the top two pools of lanes ``cand`` while they violate."""
+    while cand.numel():
+        nl = n[cand]
+        p = torch.clamp(nl - 2, min=0)
+        q = torch.clamp(nl - 1, min=0)
+        gl = torch.exp(logg[cand] * ln[cand, p].to(_f32))
+        vp = torch.clamp(v[cand, p] / w[cand, p], min=0.0)
+        vq = v[cand, q] / w[cand, q]
+        viol = (nl >= 2) & (vq < vp * gl + smin[cand])
+        cand, p, q, gl = cand[viol], p[viol], q[viol], gl[viol]
+        v[cand, p] = v[cand, p] + v[cand, q] * gl
+        w[cand, p] = w[cand, p] + w[cand, q] * gl * gl
+        ln[cand, p] = ln[cand, p] + ln[cand, q]
+        n[cand] -= 1
+
+
+def _clear_unused(v, w, ts, ln, n):
+    unused = torch.arange(v.shape[1], device=v.device)[None, :] >= n[:, None]
+    v[unused] = 0.0
+    w[unused] = 1.0
+    ts[unused] = 0
+    ln[unused] = 0
+
+
+def oasis_chunk_pools_reference(vinit: torch.Tensor, g: torch.Tensor,
+                                smin: torch.Tensor, L: int) -> Pools:
+    K, T = vinit.shape
+    nc = T // L
+    N = K * nc
+    y = vinit.reshape(N, L)
+    logg = _logg(g).repeat_interleave(nc)
+    sm = smin.repeat_interleave(nc)
+    v, w, ts, ln = _empty_pools((N, L), vinit.device)
+    n = torch.zeros(N, dtype=torch.long, device=vinit.device)
+    lanes = torch.arange(N, device=vinit.device)
+    t_off = (lanes % nc) * L
+    for t in range(L):
+        v[lanes, n] = y[:, t]
+        w[lanes, n] = 1.0
+        ts[lanes, n] = (t_off + t).to(_i32)
+        ln[lanes, n] = 1
+        n += 1
+        _merge_top(v, w, ln, n, logg, sm, lanes)
+    _clear_unused(v, w, ts, ln, n)
+    return (v.reshape(K, nc, L), w.reshape(K, nc, L), ts.reshape(K, nc, L),
+            ln.reshape(K, nc, L), n.to(_i32).reshape(K, nc))
+
+
+def oasis_pool_merge_reference(v0, w0, ts0, l0, n_in, g, smin) -> Pools:
+    K, nc, L = v0.shape
+    dev = v0.device
+    v, w, ts, ln = _empty_pools((K, nc * L), dev)
+    n = torch.zeros(K, dtype=torch.long, device=dev)
+    logg = _logg(g)
+    lanes = torch.arange(K, device=dev)
+    for c in range(nc):
+        m = n_in[:, c].long()
+        for i in range(int(m.max()) if K else 0):
+            live = lanes[i < m]
+            nl = n[live]
+            v[live, nl] = v0[live, c, i]
+            w[live, nl] = w0[live, c, i]
+            ts[live, nl] = ts0[live, c, i]
+            ln[live, nl] = l0[live, c, i]
+            n[live] += 1
+            _merge_top(v, w, ln, n, logg, smin, live)
+    _clear_unused(v, w, ts, ln, n)
+    return v, w, ts, ln, n.to(_i32)
+
+
+def oasis_reconstruct_reference(v, w, ts, ln, n, g, T: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    K, P = v.shape
+    dev = v.device
+    logg = _logg(g)[:, None]
+    valid = torch.arange(P, device=dev)[None, :] < n[:, None]
+    starts = torch.where(valid, ts, 0).long()
+    is_start = torch.zeros((K, T), dtype=torch.long, device=dev)
+    is_start.scatter_reduce_(1, starts, valid.long(), reduce="amax")
+    is_start[:, 0] = 1
+    seg = torch.cumsum(is_start, dim=1) - 1
+    pool_val = torch.clamp(v / torch.clamp(w, min=1e-20), min=0.0)
+    tgrid = torch.arange(T, device=dev)[None, :]
+    t0 = torch.gather(ts.long(), 1, seg)
+    val = torch.gather(pool_val, 1, seg)
+    c = val * torch.exp(logg * (tgrid - t0).to(_f32))
+    c_prev = torch.cat([torch.zeros((K, 1), dtype=_f32, device=dev),
+                        c[:, :-1]], dim=1)
+    s = torch.where((is_start == 1) & (tgrid > 0),
+                    c - g[:, None] * c_prev, 0.0)
+    return c, s
+
+
+# --------------------------------------------------------------------- #
+# dispatch
+# --------------------------------------------------------------------- #
+def oasis_chunk_pools(vinit: torch.Tensor, g: torch.Tensor,
+                      smin: torch.Tensor, L: int) -> Pools:
+    """Pass 1. vinit: (K, T) lambda-adjusted traces with T a multiple of
+    L; g, smin: (K,). Returns pools v, w, t0, len (K, T // L, L) with
+    trace-global start times, and counts n (K, T // L) int32."""
+    K, T = vinit.shape
+    if T % L:
+        raise ValueError(f"T={T} is not a multiple of L={L}")
+    if not vinit.is_cuda:
+        return oasis_chunk_pools_reference(vinit, g, smin, L)
+    check_cuda(vinit, g, smin, dtypes=(_f32, _f32, _f32))
+    _check_shapes((g, (K,)), (smin, (K,)))
+    nc = T // L
+    v, w, ts, ln = _empty_pools((K, nc, L), vinit.device)
+    n = torch.empty((K, nc), dtype=_i32, device=vinit.device)
+    launch("oasis_chunk_pools", vinit.device, vinit, g, smin, K, nc, L,
+           v, w, ts, ln, n)
+    return v, w, ts, ln, n
+
+
+def oasis_pool_merge(v0, w0, ts0, l0, n_in, g, smin) -> Pools:
+    """Pass 2. Chunk-major pool lists (K, nc, L) with counts n_in (K, nc)
+    -> merged pools (K, nc * L) packed from slot 0, counts n (K,)."""
+    if not v0.is_cuda:
+        return oasis_pool_merge_reference(v0, w0, ts0, l0, n_in, g, smin)
+    check_cuda(v0, w0, ts0, l0, n_in, g, smin,
+               dtypes=(_f32, _f32, _i32, _i32, _i32, _f32, _f32))
+    K, nc, L = v0.shape
+    _check_shapes((w0, v0.shape), (ts0, v0.shape), (l0, v0.shape),
+                  (n_in, (K, nc)), (g, (K,)), (smin, (K,)))
+    v, w, ts, ln = _empty_pools((K, nc * L), v0.device)
+    n = torch.empty((K,), dtype=_i32, device=v0.device)
+    launch("oasis_pool_merge", v0.device, v0, w0, ts0, l0, n_in, g, smin,
+           K, nc, L, v, w, ts, ln, n)
+    return v, w, ts, ln, n
+
+
+def oasis_reconstruct(v, w, ts, ln, n, g, T: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pools (K, P) covering [0, T) -> c, s (K, T):
+    c[t] = max(v/w, 0) g^(t - t0) on [t0, t0 + len), and
+    s[t0] = c[t0] - g c[t0 - 1] at every pool start t0 > 0."""
+    if not v.is_cuda:
+        return oasis_reconstruct_reference(v, w, ts, ln, n, g, T)
+    check_cuda(v, w, ts, ln, n, g,
+               dtypes=(_f32, _f32, _i32, _i32, _i32, _f32))
+    K, P = v.shape
+    _check_shapes((w, v.shape), (ts, v.shape), (ln, v.shape), (n, (K,)),
+                  (g, (K,)))
+    if K > 65535:
+        raise ValueError(f"K={K} traces exceed the launch grid")
+    c = torch.zeros((K, T), dtype=_f32, device=v.device)
+    s = torch.zeros((K, T), dtype=_f32, device=v.device)
+    launch("oasis_reconstruct", v.device, v, w, ts, ln, n, g, K, P, T, c, s)
+    return c, s

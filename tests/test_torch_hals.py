@@ -1,0 +1,169 @@
+"""HALS sweeps in the PyTorch port vs the JAX package.
+
+The port's HALS kernel runs here as its plain PyTorch version (CPU
+tensors). It is held against the JAX kernel it replaces
+(``hals_sweeps_rows_pallas`` in interpret mode) at rtol/atol 2e-5, and
+against the float64 sequential Gauss-Seidel oracle of
+``tests/test_pallas_hals.py`` at 2e-4, for the spatial (relu + mask) and
+temporal (gate) calls with the colored class schedule; the full
+``hals_spatial``/``hals_temporal`` updates against the JAX functions with
+``colored=True``, the only order the port runs.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cnmf_e_tpu.ops import coloring as jax_coloring
+from cnmf_e_tpu.ops import hals as jax_hals
+from cnmf_e_tpu.ops.pallas_hals import hals_sweeps_rows_pallas
+from cnmf_e_tpu_torch.ops import coloring
+from cnmf_e_tpu_torch.ops.hals import hals_spatial, hals_temporal
+from cnmf_e_tpu_torch.ops.hals_kernels import hals_sweeps_reference
+from tests.test_pallas_hals import _gs_oracle
+
+torch.set_num_threads(1)
+
+
+def _blobs(rng, K, H, W, sig=2.0):
+    cy, cx = rng.uniform(0, H, K), rng.uniform(0, W, K)
+    yy, xx = np.mgrid[0:H, 0:W]
+    A = np.exp(-((yy[None] - cy[:, None, None]) ** 2
+                 + (xx[None] - cx[:, None, None]) ** 2) / (2 * sig ** 2))
+    return np.where(A > 0.05, A, 0.0).astype(np.float32)
+
+
+def _spatial_problem(seed, K=20, H=24, W=24, T=120):
+    rng = np.random.default_rng(seed)
+    A = _blobs(rng, K, H, W)
+    C = np.abs(rng.standard_normal((K, T))).astype(np.float32)
+    Y = (A.reshape(K, -1).T @ C
+         + 0.1 * rng.standard_normal((H * W, T))).astype(np.float32)
+    A0 = np.maximum(A * (1 + 0.3 * rng.standard_normal(A.shape)), 0)
+    dil = np.zeros_like(A0, bool)
+    sup = A0 > 0
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            dil |= np.roll(np.roll(sup, dy, 1), dx, 2)
+    mask = dil.reshape(K, -1)
+    Cc = C - C.mean(1, keepdims=True)
+    U = (Y @ Cc.T).T.astype(np.float32)                     # (K, d)
+    V = (Cc @ Cc.T).astype(np.float32)
+    return U, V, A0.reshape(K, -1).astype(np.float32), mask, Y, C
+
+
+def _colored_rows(mask_or_adj, *arrays, adjacency=False):
+    adj = (mask_or_adj if adjacency
+           else np.asarray(jax_coloring.overlap_adjacency(
+               jnp.asarray(mask_or_adj))))
+    colors = np.asarray(jax_coloring.greedy_color(jnp.asarray(adj)))
+    order = np.argsort(colors, kind="stable")
+    sched = jax_coloring.class_step_schedule(jnp.asarray(colors[order]),
+                                             block=64)
+    return order, sched
+
+
+def _sched_torch(sched):
+    return tuple(torch.tensor(np.asarray(x)) for x in sched)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_spatial_plain_matches_pallas_and_oracle(seed):
+    U, V, X, mask, _, _ = _spatial_problem(seed)
+    order, sched = _colored_rows(mask)
+    U, X, mask = U[order], X[order], mask[order]
+    V = V[order][:, order]
+    K = X.shape[0]
+    want = np.asarray(hals_sweeps_rows_pallas(
+        jnp.asarray(U), jnp.asarray(V), jnp.asarray(X),
+        gate=jnp.ones(K), mask=jnp.asarray(mask), n_iter=4, block=64,
+        relu=True, schedule=sched, interpret=True))
+    got = hals_sweeps_reference(
+        torch.tensor(U), torch.tensor(V), torch.tensor(X), torch.ones(K),
+        _sched_torch(sched), mask=torch.tensor(mask), n_iter=4, block=64,
+        relu=True).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    oracle = _gs_oracle(U.T, V, np.where(mask, X, 0).T, n_iter=4,
+                        relu=True, mask=mask.T).T
+    np.testing.assert_allclose(got, oracle, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_temporal_plain_matches_pallas_and_oracle(seed):
+    rng = np.random.default_rng(10 + seed)
+    K, H, W, T = 16, 20, 20, 150
+    A = _blobs(rng, K, H, W).reshape(K, -1)
+    Y = rng.standard_normal((H * W, T)).astype(np.float32)
+    C0 = np.abs(rng.standard_normal((K, T))).astype(np.float32)
+    U = (A @ Y).astype(np.float32)
+    V = (A @ A.T).astype(np.float32)
+    gate = rng.random(K) > 0.2
+    adj = (V != 0) & ~np.eye(K, dtype=bool)
+    order, sched = _colored_rows(adj, adjacency=True)
+    U, C0, gate = U[order], C0[order], gate[order]
+    V = V[order][:, order]
+    want = np.asarray(hals_sweeps_rows_pallas(
+        jnp.asarray(U), jnp.asarray(V), jnp.asarray(C0),
+        gate=jnp.asarray(gate), n_iter=4, block=64, relu=False,
+        schedule=sched, interpret=True))
+    got = hals_sweeps_reference(
+        torch.tensor(U), torch.tensor(V), torch.tensor(C0),
+        torch.tensor(gate), n_iter=4, block=64, relu=False,
+        schedule=_sched_torch(sched)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    oracle = _gs_oracle(U.T, V, C0.T, n_iter=4, relu=False, gate=gate).T
+    np.testing.assert_allclose(got, oracle, rtol=2e-4, atol=2e-4)
+
+
+def test_overflowing_schedule_falls_back_to_block_grid():
+    """More classes than the step capacity: the fallback schedule (plain
+    blocks, free only where no class boundary crosses) still solves
+    exactly."""
+    U, V, X, mask, _, _ = _spatial_problem(3)
+    K = X.shape[0]
+    colors = np.arange(K, dtype=np.int32)            # every row its class
+    sched_j = jax_coloring.class_step_schedule(jnp.asarray(colors), block=8,
+                                               n_cap=4)
+    sched_t = coloring.class_step_schedule(torch.tensor(colors), block=8,
+                                           n_cap=4)
+    for a, b in zip(sched_t, sched_j):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    got = hals_sweeps_reference(torch.tensor(U), torch.tensor(V),
+                                torch.tensor(X), torch.ones(K), sched_t,
+                                mask=torch.tensor(mask), n_iter=2, block=8,
+                                relu=True).numpy()
+    oracle = _gs_oracle(U.T, V, np.where(mask, X, 0).T, n_iter=2,
+                        relu=True, mask=mask.T).T
+    np.testing.assert_allclose(got, oracle, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("seed", [4, 5])
+def test_hals_spatial_colored_matches_jax(seed):
+    _, _, X, mask, Y, C = _spatial_problem(seed)
+    want = np.asarray(jax_hals.hals_spatial(
+        jnp.asarray(Y), jnp.asarray(X.T), jnp.asarray(C),
+        mask=jnp.asarray(mask.T), n_iter=5, colored=True))
+    got = hals_spatial(torch.tensor(Y), torch.tensor(X.T), torch.tensor(C),
+                       mask=torch.tensor(mask.T), n_iter=5).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("all_active", [False, True])
+def test_hals_temporal_matches_jax(all_active):
+    rng = np.random.default_rng(5)
+    K, H, W, T = 14, 20, 20, 130
+    A = _blobs(rng, K, H, W).reshape(K, -1)
+    Y = (A.T @ np.abs(rng.standard_normal((K, T)))
+         + 0.1 * rng.standard_normal((H * W, T))).astype(np.float32)
+    C0 = np.abs(rng.standard_normal((K, T))).astype(np.float32)
+    active = rng.random(K) > (-1.0 if all_active else 0.2)
+    Cj, aaj = jax_hals.hals_temporal(
+        jnp.asarray(Y), jnp.asarray(A.T), jnp.asarray(C0), n_iter=4,
+        active=jnp.asarray(active), colored=True)
+    Ct, aat = hals_temporal(torch.tensor(Y), torch.tensor(A.T),
+                            torch.tensor(C0), n_iter=4,
+                            active=torch.tensor(active))
+    np.testing.assert_allclose(Ct.numpy(), np.asarray(Cj), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(aat.numpy(), np.asarray(aaj), rtol=1e-5)
