@@ -9,9 +9,11 @@ Phases (each fails the script when its check fails):
   2. kernels vs plain: every kernel against its plain PyTorch version on
      the card, at the shapes CNMFE.fit and the update step give it on a
      256x256x2000 movie with 192 neuron slots and ring radius 13, with
-     median CUDA-event times of both; the banded bf16 ring products also
-     against the f32 stencil; the stencil also at the fit's own shapes
-     (the 128x128 coarse grid, radius 9, with and without the intercept);
+     median CUDA-event times of both and each kernel's bound; K1 also at
+     edge shapes (K from 1 to 4000, mixed schedules, gate zeros, masks);
+     the banded bf16 ring products also against the f32 stencil; the
+     stencil also at the fit's own shapes (the 128x128 coarse grid,
+     radius 9, with and without the intercept);
   3. end-to-end consistency: CNMFE.fit on a small simulated movie on the
      card and on the CPU must agree;
   4. the fit at full size: CNMFE.fit with the 1p preset on a simulated
@@ -46,10 +48,10 @@ if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device", file=sys.stderr)
     sys.exit(1)
 
-from cnmf_e_tpu.config import (BackgroundParams, CNMFEParams,  # noqa: E402
-                               InitParams, MergeParams)
-from cnmf_e_tpu.utils.metrics import detection_f1, trace_corr  # noqa: E402
-from cnmf_e_tpu.utils.simulate import simulate_movie  # noqa: E402
+from cnmf_e_tpu_torch.config import (  # noqa: E402
+    BackgroundParams, CNMFEParams, InitParams, MergeParams)
+from cnmf_e_tpu_torch.utils.metrics import detection_f1, trace_corr  # noqa: E402
+from cnmf_e_tpu_torch.utils.simulate import simulate_movie  # noqa: E402
 from cnmf_e_tpu_torch import cuda_build  # noqa: E402
 from cnmf_e_tpu_torch.convert import step_state_from_numpy  # noqa: E402
 from cnmf_e_tpu_torch.models.pipeline import CNMFE  # noqa: E402
@@ -95,6 +97,10 @@ PATH_EXACT = {"hals_sweeps", "oasis_chunk_pools", "oasis_pool_merge",
               "oasis_reconstruct", "ring_stencil"}
 PATH_MXU = PATH_EXACT - {"ring_stencil"} | {"ring_banded_flat"}
 RADIUS = 13                 # bench.py's ring radius at 256 x 256
+# peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): FP32 on the
+# CUDA cores, dense bf16 on the tensor cores, HBM3
+FP32_FLOPS, BF16_FLOPS, HBM_BYTES = 67e12, 989e12, 3.35e12
+HALS_TOL = 2e-5             # K1 against its plain version, times 1 + |x|
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -111,6 +117,18 @@ def cuda_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS):
+    """The least time the card could take, in ms, and what sets it: the
+    larger of the operations over the peak rate and the bytes (each input
+    read once, each output written once) over the HBM rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def require(cond: bool, what: str) -> None:
@@ -180,12 +198,107 @@ def slice_problem(K=192, H=256, W=256, T=2000, seed=0):
     return A, C, Y, g
 
 
+def hals_case(what, U, V, X, gate, sched, M, n_iter, block, relu,
+              plain_reps=0):
+    """K1 on one call against its plain version (within HALS_TOL times
+    1 + |x|); with plain_reps > 0 also timed: the kernel, the plain version,
+    and n_iter f32 torch.mm(V, X) (the same multiply-adds as a Jacobi sweep,
+    a yardstick of cuBLAS's FP32 rate here that the port never calls)."""
+    K, d = X.shape
+
+    def kernel():
+        return hals_kernels.hals_sweeps(U, V, X, gate, sched, M, n_iter,
+                                        block, relu)
+
+    def plain():
+        return hals_kernels.hals_sweeps_reference(U, V, X, gate, sched, M,
+                                                  n_iter, block, relu)
+
+    out_k, out_p = kernel(), plain()
+    torch.cuda.synchronize()
+    err = (out_k - out_p).abs()
+    ok = bool((err <= HALS_TOL * (1 + out_p.abs())).all()
+              and torch.isfinite(out_k).all())
+    steps = int(sched[3])
+    res = dict(case=what, K=K, d=d, n_iter=n_iter, steps=steps,
+               mask=M is not None, max_abs_err=float(err.max()))
+    # the kernel's tiling: columns per CTA and Gram columns per V slice
+    TD, KC = hals_kernels._tiling(K, d, hals_kernels._sm_count(DEV.index))
+    line = (f"phase 2: hals_sweeps {what} K={K} d={d} n_iter={n_iter} "
+            f"block={block} steps={steps} mask={M is not None} TD={TD} "
+            f"KC={KC}: max_abs_err "
+            f"{res['max_abs_err']:.3e} (tol {HALS_TOL:g}*(1+|x|))")
+    if plain_reps:
+        bms, by = bound(n_iter * 2.0 * K * K * d,
+                        nbytes(U, V, X, X) + (0 if M is None else K * d))
+        res.update(ms=cuda_ms(kernel, 5), plain_ms=cuda_ms(plain, plain_reps),
+                   library_ms=cuda_ms(lambda: [torch.mm(V, X)
+                                               for _ in range(n_iter)], 5),
+                   bound_ms=bms, bound_by=by)
+        line += (f" kernel {res['ms']:.3f} ms, bound {bms:.3f} ms ({by}), "
+                 f"plain {res['plain_ms']:.3f} ms, {n_iter} x torch.mm(V, X) "
+                 f"{res['library_ms']:.3f} ms")
+    print(line, flush=True)
+    require(ok, f"hals_sweeps ({what}, K={K}, d={d}) disagrees with its "
+            f"plain version")
+    return res
+
+
+def phase2_hals_edges():
+    """K1 at edge shapes: K from 1 to 4000 (V streams through shared memory
+    past K ~ 600; past K ~ 3250 the tile narrows to 8 columns), d from 300
+    to 65,536, class schedules of free steps, the in-order block grid, and
+    the overflow fallback that mixes free and in-order steps; gates with
+    zeros; with and without a mask."""
+    cases = []
+    for K, d, kind, masked, gate_zeros in (
+            (1, 2000, "coloured", True, False),
+            (5, 3050, "block grid", False, True),
+            (5, 65536, "coloured", False, False),
+            (37, 65536, "mixed", True, True),
+            (37, 3050, "mixed", False, False),
+            (700, 3050, "coloured", True, True),
+            (700, 65536, "block grid", True, False),
+            (2304, 2000, "block grid", False, True),
+            (2304, 3050, "coloured", True, True),
+            (4000, 300, "coloured", True, True)):
+        g = torch.Generator(device=DEV).manual_seed(K * 7 + d)
+        X = torch.clamp(torch.randn((K, d), generator=g, device=DEV), min=0)
+        X = X * (torch.rand((K, d), generator=g, device=DEV) < 0.1)
+        M = (((torch.rand((K, d), generator=g, device=DEV) < 0.1) | (X > 0))
+             if masked else None)
+        F = torch.randn((K, 64), generator=g, device=DEV)
+        V = F @ F.T / 64 + torch.eye(K, device=DEV)
+        U = torch.randn((K, d), generator=g, device=DEV)
+        gate = torch.ones(K, device=DEV)
+        if gate_zeros:
+            gate[::3] = 0.0
+        if kind == "block grid":
+            block = 16
+            sched = hals_kernels.block_grid_schedule(K, block, DEV)
+        else:
+            # "coloured": up to 7 classes (ids below K, as a colouring
+            # gives); "mixed": 12-row classes on 8-row steps overflow a
+            # 4-step capacity, and the fallback grid is free only where a
+            # step stays inside one class
+            block = 64 if kind == "coloured" else 8
+            classes = (torch.arange(K, device=DEV) * min(K, 7) // K
+                       if kind == "coloured"
+                       else torch.arange(K, device=DEV) // 12)
+            sched = class_step_schedule(classes.to(torch.int32), block=block,
+                                        n_cap=4 if kind == "mixed" else None)
+        cases.append(hals_case(f"edge {kind}", U, V, X, gate, sched, M, 2,
+                               block, masked or K % 2 == 1))
+    return cases
+
+
 def phase2_kernels(K=192, H=256, W=256, T=2000):
     A, C, Y, gen = slice_problem(K=K, H=H, W=W, T=T)
     d = A.shape[1] * A.shape[2]
     results = {}
 
-    # K1 spatial: masked, relu, colored, 10 sweeps (models/spatial.py)
+    # K1 spatial: masked, relu, colored (models/spatial.py; the step's
+    # spatial update on the same masks)
     A0 = torch.clamp(A * (1 + 0.2 * torch.randn(A.shape, generator=gen,
                                                  device=DEV)), min=0.0)
     mask = search_locations_dilate(A0, radius=2).reshape(K, d)
@@ -210,25 +323,8 @@ def phase2_kernels(K=192, H=256, W=256, T=2000):
     M = mask[order].contiguous()
     ones = torch.ones(K, device=DEV)
 
-    def sp_kernel():
-        return hals_kernels.hals_sweeps(U, V, X, ones, sched, M, 10, 64, True)
-
-    def sp_plain():
-        return hals_kernels.hals_sweeps_reference(U, V, X, ones, sched, M, 10,
-                                                  64, True)
-
-    out_k, out_p = sp_kernel(), sp_plain()
-    torch.cuda.synchronize()
-    err_sp = (out_k - out_p).abs()
-    ok_sp = bool((err_sp <= 2e-5 * (1 + out_p.abs())).all())
-    ms_sp, plain_sp = cuda_ms(sp_kernel, 5), cuda_ms(sp_plain, 3)
-    print(f"phase 2: hals_sweeps spatial K={K} d={d} n_iter=10 "
-          f"steps={int(sched[3])}: max_abs_err {float(err_sp.max()):.3e} "
-          f"(tol 2e-5*(1+|x|)) kernel {ms_sp:.3f} ms plain {plain_sp:.3f} ms",
-          flush=True)
-    require(ok_sp, "hals_sweeps spatial disagrees with its plain version")
-
-    # K1 temporal: gate, no relu, colored, 4 sweeps (models/temporal.py)
+    # K1 temporal: no relu, colored (models/temporal.py, the step's
+    # temporal update)
     Af = A.reshape(K, d)
     Vt = Af @ Af.T
     adj = (Vt != 0) & ~torch.eye(K, dtype=torch.bool, device=DEV)
@@ -241,54 +337,27 @@ def phase2_kernels(K=192, H=256, W=256, T=2000):
           )[order_t].contiguous()
     gate = (torch.rand(K, generator=gen, device=DEV) > 0.1).float()
 
-    def tm_kernel():
-        return hals_kernels.hals_sweeps(Ut, Vt, C0, gate, sched_t, None, 4,
-                                        64, False)
-
-    def tm_plain():
-        return hals_kernels.hals_sweeps_reference(Ut, Vt, C0, gate, sched_t,
-                                                  None, 4, 64, False)
-
-    out_k, out_p = tm_kernel(), tm_plain()
-    torch.cuda.synchronize()
-    err_tm = (out_k - out_p).abs()
-    ok_tm = bool((err_tm <= 2e-5 * (1 + out_p.abs())).all())
-    ms_tm, plain_tm = cuda_ms(tm_kernel, 5), cuda_ms(tm_plain, 3)
-    print(f"phase 2: hals_sweeps temporal K={K} T={T} n_iter=4 "
-          f"steps={int(sched_t[3])}: max_abs_err {float(err_tm.max()):.3e} "
-          f"(tol 2e-5*(1+|x|)) kernel {ms_tm:.3f} ms plain {plain_tm:.3f} ms",
-          flush=True)
-    require(ok_tm, "hals_sweeps temporal disagrees with its plain version")
-
-    # K1 on the block grid (the uncoloured update step): rows in order,
-    # 16 a step, on the same factors
-    errs = [float(err_sp.max()), float(err_tm.max())]
+    # the fit's calls (10 spatial, 4 temporal sweeps), the step's
+    # (n_hals = 1), and the uncoloured step's in-order block grid, 16 rows
+    # a step
     sched_bg = hals_kernels.block_grid_schedule(K, 16, DEV)
-    for what, (U_, V_, X_, g_, M_, n_it, relu) in (
-            ("spatial", (U, V, X, ones, M, 10, True)),
-            ("temporal", (Ut, Vt, C0, gate, None, 4, False))):
-        def bg_kernel():
-            return hals_kernels.hals_sweeps(U_, V_, X_, g_, sched_bg, M_,
-                                            n_it, 16, relu)
-
-        def bg_plain():
-            return hals_kernels.hals_sweeps_reference(U_, V_, X_, g_,
-                                                      sched_bg, M_, n_it, 16,
-                                                      relu)
-
-        out_k, out_p = bg_kernel(), bg_plain()
-        torch.cuda.synchronize()
-        err = (out_k - out_p).abs()
-        ok = bool((err <= 2e-5 * (1 + out_p.abs())).all())
-        ms, pms = cuda_ms(bg_kernel, 3), cuda_ms(bg_plain, 1)
-        print(f"phase 2: hals_sweeps {what} block grid K={K} d={X_.shape[1]} "
-              f"n_iter={n_it} block=16 steps={int(sched_bg[3])}: max_abs_err "
-              f"{float(err.max()):.3e} (tol 2e-5*(1+|x|)) kernel {ms:.3f} ms "
-              f"plain {pms:.3f} ms", flush=True)
-        require(ok, f"hals_sweeps {what} on the block grid disagrees with "
-                f"its plain version")
-        errs.append(float(err.max()))
-    results["hals_sweeps"] = (max(errs), ms_sp, plain_sp)
+    cases = [hals_case(*c) for c in (
+        ("spatial coloured, fit", U, V, X, ones, sched, M, 10, 64, True, 3),
+        ("temporal coloured, fit", Ut, Vt, C0, gate, sched_t, None, 4, 64,
+         False, 3),
+        ("spatial coloured, step", U, V, X, ones, sched, M, 1, 64, True, 3),
+        ("temporal coloured, step", Ut, Vt, C0, ones, sched_t, None, 1, 64,
+         False, 3),
+        ("spatial block grid", U, V, X, ones, sched_bg, M, 10, 16, True, 1),
+        ("temporal block grid", Ut, Vt, C0, gate, sched_bg, None, 4, 16,
+         False, 1))]
+    cases += phase2_hals_edges()
+    fit = cases[0]
+    results["hals_sweeps"] = dict(
+        max_abs_err=max(c["max_abs_err"] for c in cases), ms=fit["ms"],
+        plain_ms=fit["plain_ms"], bound_ms=fit["bound_ms"],
+        bound_by=fit["bound_by"], library_ms=fit["library_ms"],
+        cases=cases)
 
     # K2 -> K3 -> K4: the foopsi deconvolution of K traces of T frames
     y = C + 0.1 * torch.randn(C.shape, generator=gen, device=DEV)
@@ -313,13 +382,16 @@ def phase2_kernels(K=192, H=256, W=256, T=2000):
                 "OASIS pool values differ from the plain version")
         return max(float(e.max()) for e in errs)
 
+    # bounds: bytes in and out; the pool arithmetic is a few operations
+    # per sample, far under the bytes
     p1k = oasis_kernels.oasis_chunk_pools(vinit, g, smin, L)
     p1p = oasis_kernels.oasis_chunk_pools_reference(vinit, g, smin, L)
     err = pools_err(p1k, p1p)
     ms = cuda_ms(lambda: oasis_kernels.oasis_chunk_pools(vinit, g, smin, L), 5)
     pms = cuda_ms(lambda: oasis_kernels.oasis_chunk_pools_reference(
         vinit, g, smin, L), 3)
-    results["oasis_chunk_pools"] = (err, ms, pms)
+    results["oasis_chunk_pools"] = (err, ms, pms,
+                                    nbytes(vinit, g, smin, *p1k))
 
     p2k = oasis_kernels.oasis_pool_merge(*p1k, g, smin)
     p2p = oasis_kernels.oasis_pool_merge_reference(*p1k, g, smin)
@@ -327,7 +399,7 @@ def phase2_kernels(K=192, H=256, W=256, T=2000):
     ms = cuda_ms(lambda: oasis_kernels.oasis_pool_merge(*p1k, g, smin), 5)
     pms = cuda_ms(lambda: oasis_kernels.oasis_pool_merge_reference(
         *p1k, g, smin), 3)
-    results["oasis_pool_merge"] = (err, ms, pms)
+    results["oasis_pool_merge"] = (err, ms, pms, nbytes(*p1k, g, smin, *p2k))
 
     ck, sk = oasis_kernels.oasis_reconstruct(*p2k, g, Tp)
     cp, sp = oasis_kernels.oasis_reconstruct_reference(*p2k, g, Tp)
@@ -336,12 +408,16 @@ def phase2_kernels(K=192, H=256, W=256, T=2000):
     ms = cuda_ms(lambda: oasis_kernels.oasis_reconstruct(*p2k, g, Tp), 5)
     pms = cuda_ms(lambda: oasis_kernels.oasis_reconstruct_reference(
         *p2k, g, Tp), 3)
-    results["oasis_reconstruct"] = (err, ms, pms)
+    results["oasis_reconstruct"] = (err, ms, pms, nbytes(*p2k, g, ck, sk))
     for name in ("oasis_chunk_pools", "oasis_pool_merge",
                  "oasis_reconstruct"):
-        e, ms, pms = results[name]
+        e, ms, pms, nb = results[name]
+        bms, by = bound(0.0, nb)
+        results[name] = dict(max_abs_err=e, ms=ms, plain_ms=pms,
+                             bound_ms=bms, bound_by=by, library_ms=None)
         print(f"phase 2: {name} K={K} T={T} L={L}: max_abs_err {e:.3e} "
-              f"(tol 1e-4) kernel {ms:.3f} ms plain {pms:.3f} ms", flush=True)
+              f"(tol 1e-4) kernel {ms:.3f} ms, bound {bms:.4f} ms ({by}), "
+              f"plain {pms:.3f} ms", flush=True)
     return results
 
 
@@ -408,12 +484,28 @@ def phase2_ring(H=256, W=256, T=2000):
                       lambda k=kernel: k(bands, w0, X, H, W, RADIUS),
                       lambda p=plain: getattr(ring_kernels, p)(
                           bands, w0, X, H, W, RADIUS)))
+    # bounds: K6 does a multiply-add per tap and an add of w0 in FP32 and
+    # moves X, w, w0 and the output; K5/K7 compute the same function, whose
+    # R taps per pixel are the band's only nonzeros (its other products are
+    # with zeros, which the function does not need), so they count the
+    # stencil's operations at the bf16 rate and move the bands, w0, the
+    # bf16 movie and the f32 output
+    bounds = {
+        "ring_stencil": bound((2.0 * R + 1) * T * H * W,
+                              nbytes(X, X, w, w0)),
+        "ring_banded_flat": bound((2.0 * R + 1) * T * H * W,
+                                  nbytes(bands, w0, X) + X.numel() * 2,
+                                  BF16_FLOPS)}
+    bounds["ring_banded_htw"] = bounds["ring_banded_flat"]
     results = {}
     for name, kernel, plain in timed:
         ms, pms = cuda_ms(kernel, 5), cuda_ms(plain, 2)
-        results[name] = (errs[name], ms, pms)
+        bms, by = bounds[name]
+        results[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=pms,
+                             bound_ms=bms, bound_by=by, library_ms=None)
         print(f"phase 2: {name} {H}x{W}x{T} radius={RADIUS}: kernel "
-              f"{ms:.3f} ms plain {pms:.3f} ms", flush=True)
+              f"{ms:.3f} ms, bound {bms:.3f} ms ({by}), plain {pms:.3f} ms",
+              flush=True)
     ms_bands = cuda_ms(lambda: ring_kernels.ring_dense_bands(
         weight_sets["random"], H, W, RADIUS), 3)
     print(f"phase 2: ring_dense_bands (plain PyTorch scatter, "
@@ -451,10 +543,13 @@ def phase2_ring_fit_grid(H=128, W=128, T=2000, radius=9):
         wts.w, wts.w0, X, H, W, radius), 5)
     pms = cuda_ms(lambda: ring_kernels.apply_ring_stencil_reference(
         wts.w, wts.w0, X, H, W, radius), 2)
+    bms, by = bound((2.0 * R + 1) * T * H * W, nbytes(X, X, wts.w, wts.w0))
     print(f"phase 2: ring_stencil fit grid {H}x{W}x{T} radius={radius}: "
-          f"kernel {ms:.3f} ms plain {pms:.3f} ms", flush=True)
+          f"kernel {ms:.3f} ms, bound {bms:.3f} ms ({by}), plain {pms:.3f} ms",
+          flush=True)
     return {"shape": f"T={T} H={H} W={W} radius={radius}",
-            "max_abs_err": err, "ms": ms, "plain_ms": pms}
+            "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms,
+            "bound_by": by}
 
 
 # ------------------------------------------------------------------ #
@@ -508,13 +603,20 @@ def phase3_consistency():
     check_path(launches, PATH_EXACT, "ssub=1 fit")
 
 
-def phase4_full():
+def fit_problem():
+    """bench.py:199-236's 1p recording: the simulated 256x256x2000 movie and
+    the 1p preset with 192 neuron slots."""
     gt = simulate_movie(seed=7, H=256, W=256, T=2000, K=120, gSig=3.0,
                         sn=0.1, bg_strength=1.0, min_dist=9.0,
                         spike_rate=0.02)
     params = CNMFEParams.preset_1p()
     params = params.replace(init=dataclasses.replace(
         params.init, max_neurons=192, seeds_per_round=64, max_rounds=10))
+    return gt, params
+
+
+def phase4_full():
+    gt, params = fit_problem()
     Y = torch.as_tensor(gt.Y, device=DEV)
     CNMFE(params, device=DEV).fit(Y, n_outer=2)             # warm-up
     torch.cuda.synchronize()
@@ -658,8 +760,8 @@ def main():
     results = phase2_kernels()
     results.update(phase2_ring())
     fit_grid = phase2_ring_fit_grid()
-    err, ms, pms = results["ring_stencil"]
-    results["ring_stencil"] = (max(err, fit_grid["max_abs_err"]), ms, pms)
+    results["ring_stencil"]["max_abs_err"] = max(
+        results["ring_stencil"]["max_abs_err"], fit_grid["max_abs_err"])
     phase3_consistency()
     per_path = {"fit": phase4_full()}
     per_path.update(phase5_step())
@@ -671,8 +773,7 @@ def main():
     print(f"launches per main-path run: {json.dumps(per_path)}", flush=True)
     kernels = [{"name": name, "route": "cuda", "source": KERNEL_META[name][0],
                 "replaces": KERNEL_META[name][1], "launches": launches[name],
-                "max_abs_err": results[name][0], "ms": results[name][1],
-                "plain_ms": results[name][2]}
+                **results[name]}
                for name in cuda_build.KERNELS]
     # the stencil's times above are at the step's 256x256 grid; the fit
     # runs it on the coarse grid

@@ -4,21 +4,24 @@ NVIDIA Hopper (sm_90a).
 A port of :mod:`cnmf_e_tpu` (JAX/Pallas), which stays beside it as the
 reference. The layout mirrors the JAX package module for module
 (``cnmf_e_tpu_torch/ops/hals.py`` <-> ``cnmf_e_tpu/ops/hals.py``). This
-package imports ``torch`` and never ``jax``; from the JAX package it
-reuses only the modules that are pure numpy/stdlib (``config``,
-``native``, ``utils.simulate``, ``utils.metrics``).
+package imports ``torch`` and never ``jax``, and nothing of the JAX
+package: it keeps its own copies of the pure-numpy modules it needs
+(``config``, ``utils.simulate``, ``utils.metrics``) and finds connected
+components with scipy.
 
-Device policy: every public function works on the device of the tensors it
-is given. The kernel wrappers launch their CUDA kernel for CUDA tensors and
-run the plain PyTorch version for CPU tensors; nothing falls back from one
-to the other.
+Device policy: the entry points (``CNMFE``, ``convert.state_from_numpy``,
+``convert.step_state_from_numpy``) put their tensors on the card unless
+the caller passes ``device="cpu"``; every other function works on the
+device of the tensors it is given. The kernel wrappers launch their CUDA
+kernel for CUDA tensors and run the plain PyTorch version for CPU
+tensors; nothing falls back from one to the other.
 """
 
 import torch
 
-from cnmf_e_tpu.config import (BackgroundParams, CNMFEParams, DeconvParams,
-                               InitParams, MergeParams, SpatialParams,
-                               TemporalParams)
+from cnmf_e_tpu_torch.config import (BackgroundParams, CNMFEParams,
+                                     DeconvParams, InitParams, MergeParams,
+                                     SpatialParams, TemporalParams)
 
 __version__ = "0.1.0"
 

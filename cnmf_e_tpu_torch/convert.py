@@ -6,13 +6,21 @@
 that export (``ring_w``/``ring_w0`` for the ring weights) plus ``active``,
 for every slot, so a round trip is lossless. ``step_state_from_numpy`` and
 ``step_state_to_numpy`` do the same for the update step's ``StepState``.
+Both functions put the state on the card unless the caller passes
+``device="cpu"``. ``params_from_dict`` builds the port's
+:class:`~cnmf_e_tpu_torch.config.CNMFEParams` from the nested dict of any
+params object with the same fields (``dataclasses.asdict``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import typing
+
 import numpy as np
 import torch
 
+from cnmf_e_tpu_torch.config import CNMFEParams
 from cnmf_e_tpu_torch.models.state import CNMFEState, RingWeights
 from cnmf_e_tpu_torch.parallel.step import StepState
 
@@ -24,7 +32,7 @@ def _f32(x, device) -> torch.Tensor:
     return torch.tensor(np.asarray(x, np.float32), device=device)
 
 
-def state_from_numpy(d: dict, device="cpu") -> CNMFEState:
+def state_from_numpy(d: dict, device="cuda") -> CNMFEState:
     """Build a state on ``device`` from a dict of numpy arrays.
 
     Keys: A, C, C_raw, S, g, neuron_sn, b0; optional active (default: all
@@ -61,7 +69,7 @@ def state_to_numpy(state: CNMFEState) -> dict:
 _STEP_KEYS = ("A", "C", "C_raw", "S", "g", "b0", "ring_w", "ring_w0")
 
 
-def step_state_from_numpy(d: dict, device="cpu") -> StepState:
+def step_state_from_numpy(d: dict, device="cuda") -> StepState:
     """A :class:`StepState` on ``device`` from a dict of numpy arrays under
     the JAX ``StepState`` field names."""
     return StepState(**{k: _f32(d[k], device) for k in _STEP_KEYS})
@@ -70,3 +78,27 @@ def step_state_from_numpy(d: dict, device="cpu") -> StepState:
 def step_state_to_numpy(st: StepState) -> dict:
     """The fields of a ``StepState`` as numpy arrays."""
     return {k: getattr(st, k).detach().cpu().numpy() for k in _STEP_KEYS}
+
+
+def _dataclass_from_dict(cls, d: dict):
+    hints = typing.get_type_hints(cls)
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(d) - names
+    if unknown:
+        raise ValueError(f"{cls.__name__} has no fields {sorted(unknown)}")
+    kw = {}
+    for name, v in d.items():
+        if dataclasses.is_dataclass(hints[name]):
+            v = _dataclass_from_dict(hints[name], v)
+        elif isinstance(v, list):
+            v = tuple(v)
+        kw[name] = v
+    return cls(**kw)
+
+
+def params_from_dict(d: dict) -> CNMFEParams:
+    """The port's ``CNMFEParams`` from a nested dict of fields, such as
+    ``dataclasses.asdict`` of the JAX package's params or a parsed
+    ``to_json``. Missing fields keep their defaults; an unknown field
+    raises."""
+    return _dataclass_from_dict(CNMFEParams, d)

@@ -45,9 +45,9 @@ build_info: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # U, V, X, cc, gate, lo, hi, free, n_steps, K, d, n_iter, relu, TD, B,
-    # stream
-    "hals_sweeps_launch": [_P] * 9 + [_I] * 6 + [_P],
+    # U, V, X, out, mask, gate, starts, ends, free, n_steps, K, d, n_iter,
+    # relu, B, TD, KC, stream
+    "hals_sweeps_launch": [_P] * 10 + [_I] * 7 + [_P],
     # vinit, g, smin, K, nc, L, v, w, ts, ln, n, stream
     "oasis_chunk_pools_launch": [_P] * 3 + [_I] * 3 + [_P] * 5 + [_P],
     # v0, w0, ts0, l0, n_in, g, smin, K, nc, L, v, w, ts, ln, n, stream

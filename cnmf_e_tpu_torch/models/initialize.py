@@ -17,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cnmf_e_tpu.config import CNMFEParams
+from cnmf_e_tpu_torch.config import CNMFEParams
 from cnmf_e_tpu_torch.models.state import CNMFEState, empty_state
 from cnmf_e_tpu_torch.ops.corr import correlation_image
 from cnmf_e_tpu_torch.ops.filters import filter_movie, gaussian_psf

@@ -9,7 +9,7 @@ squares, batched over clusters as masked matmuls) into the slot of its
 highest-energy member, whose trace is then re-deconvolved.
 :func:`merge_neurons` finds components on the device (transitive closure
 by repeated squaring); :func:`merge_neurons_seq` fetches the adjacency
-once and uses the host union-find of :mod:`cnmf_e_tpu.native`.
+once and labels its components on the host (:func:`connected_components`).
 """
 
 from __future__ import annotations
@@ -18,14 +18,32 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from scipy.sparse import csr_matrix
+from scipy.sparse.csgraph import connected_components as _csgraph_cc
 
-from cnmf_e_tpu.config import CNMFEParams
-from cnmf_e_tpu.native import connected_components
+from cnmf_e_tpu_torch.config import CNMFEParams
 from cnmf_e_tpu_torch.models.state import CNMFEState
 from cnmf_e_tpu_torch.ops.noise import noise_psd
 from cnmf_e_tpu_torch.ops.oasis import deconvolve
 
 _PLANES = {"dist_corr": 0, "dist_only": 1, "high_corr": 2}
+
+
+def connected_components(adj: np.ndarray) -> Tuple[np.ndarray, int]:
+    """Connected components of a dense symmetric adjacency (n, n), the
+    diagonal ignored. Returns (labels (n,) int32, n_components), the labels
+    compact and numbered in the order of each component's smallest node,
+    as ``cnmf_e_tpu/native/graph_cc.cpp`` numbers them."""
+    adj = np.asarray(adj) != 0
+    n = adj.shape[0]
+    if n == 0:
+        return np.empty(0, np.int32), 0
+    ncomp, raw = _csgraph_cc(csr_matrix(adj), directed=False)
+    # renumber by first appearance: component of node 0 first, and so on
+    _, first = np.unique(raw, return_index=True)
+    rank = np.empty(ncomp, np.int32)
+    rank[np.argsort(first)] = np.arange(ncomp, dtype=np.int32)
+    return rank[raw], int(ncomp)
 
 
 def decay_times(state: CNMFEState) -> np.ndarray:

@@ -14,7 +14,7 @@ from typing import Optional
 
 import torch
 
-from cnmf_e_tpu.config import CNMFEParams
+from cnmf_e_tpu_torch.config import CNMFEParams
 from cnmf_e_tpu_torch.models.background import (background_of,
                                                 residual_movie,
                                                 subtract_background,
@@ -48,10 +48,11 @@ def check_ported(params: CNMFEParams) -> None:
 
 class CNMFE:
     """High-level pipeline object. Every tensor it builds lives on
-    ``device`` (a CUDA device runs the CUDA kernels)."""
+    ``device``: the card by default, where the CUDA kernels run;
+    ``device="cpu"`` runs their plain PyTorch versions."""
 
     def __init__(self, params: Optional[CNMFEParams] = None,
-                 device="cpu"):
+                 device="cuda"):
         self.params = params or CNMFEParams.preset_1p()
         self.device = torch.device(device)
         self.state: Optional[CNMFEState] = None

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from cnmf_e_tpu.config import CNMFEParams
+from cnmf_e_tpu_torch.config import CNMFEParams
 from cnmf_e_tpu_torch.models.state import CNMFEState
 from cnmf_e_tpu_torch.ops.noise import noise_psd
 

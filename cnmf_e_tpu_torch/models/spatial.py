@@ -8,7 +8,7 @@ from typing import Optional
 
 import torch
 
-from cnmf_e_tpu.config import CNMFEParams
+from cnmf_e_tpu_torch.config import CNMFEParams
 from cnmf_e_tpu_torch.models.state import CNMFEState
 from cnmf_e_tpu_torch.ops.hals import hals_spatial
 from cnmf_e_tpu_torch.ops.morphology import (circular_constraint,

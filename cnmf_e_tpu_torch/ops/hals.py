@@ -42,15 +42,6 @@ def hals_spatial_sweeps_rows(U: torch.Tensor, V: torch.Tensor,
                        block=block, relu=True)
 
 
-def hals_spatial_sweeps(U: torch.Tensor, V: torch.Tensor, A: torch.Tensor,
-                        mask: torch.Tensor, schedule: Tuple,
-                        n_iter: int = 5) -> torch.Tensor:
-    """Gauss-Seidel spatial sweeps given U = Y C^T (d, K) and
-    V = C C^T (K, K); A, mask: (d, K), columns in colored order."""
-    return hals_spatial_sweeps_rows(U.T, V, A.T, mask=mask.T, n_iter=n_iter,
-                                    block=_BLOCK, schedule=schedule).T
-
-
 def hals_temporal_sweeps(U: torch.Tensor, V: torch.Tensor, C: torch.Tensor,
                          n_iter: int = 5,
                          active: Optional[torch.Tensor] = None,
@@ -89,12 +80,16 @@ def hals_spatial(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
     T = Y.shape[-1]
     Ymean = Y.mean(dim=1, keepdim=True)
     Cmean = C.mean(dim=1, keepdim=True)
-    U = Y @ C.T - T * (Ymean @ Cmean.T)                     # (d, K)
+    # row-major (K, d) operands straight from the products, so the kernel
+    # reads them without a transposing copy
+    U = C @ Y.T - T * (Cmean @ Ymean.T)                     # (K, d)
     V = C @ C.T - T * (Cmean @ Cmean.T)                     # (K, K)
     order, inverse, sched = _colored(overlap_adjacency(mask.T))
-    out = hals_spatial_sweeps(U[:, order], V[order][:, order], A[:, order],
-                              mask[:, order], sched, n_iter=n_iter)
-    return out[:, inverse]
+    out = hals_spatial_sweeps_rows(U[order], V[order][:, order],
+                                   A.T[order], mask=mask.T[order],
+                                   n_iter=n_iter, block=_BLOCK,
+                                   schedule=sched)
+    return out[inverse].T
 
 
 def hals_temporal(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,

@@ -15,7 +15,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from cnmf_e_tpu.config import DeconvParams
+from cnmf_e_tpu_torch.config import DeconvParams
 from cnmf_e_tpu_torch.ops.ar import estimate_time_constant
 from cnmf_e_tpu_torch.ops.noise import estimate_noise
 from cnmf_e_tpu_torch.ops.oasis_kernels import (oasis_chunk_pools,

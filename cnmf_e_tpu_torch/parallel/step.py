@@ -28,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from cnmf_e_tpu.config import DeconvParams
+from cnmf_e_tpu_torch.config import DeconvParams
 from cnmf_e_tpu_torch.models.state import RingWeights
 from cnmf_e_tpu_torch.ops.coloring import (class_step_schedule, greedy_color,
                                            overlap_adjacency)

@@ -5,7 +5,10 @@ tensors). It is held against the JAX kernel it replaces
 (``hals_sweeps_rows_pallas`` in interpret mode) at rtol/atol 2e-5, and
 against the float64 sequential Gauss-Seidel oracle of
 ``tests/test_pallas_hals.py`` at 2e-4, for the spatial (relu + mask) and
-temporal (gate) calls with the colored class schedule; the full
+temporal (gate) calls with the colored class schedule; at 2e-5 (1 + |x|)
+across the schedules the CUDA kernel tells apart (free class steps, the
+in-order block grid, the overflow fallback that mixes both; K from 1 to
+192, d from 50 to 3050, gate zeros, mask on and off); the full
 ``hals_spatial``/``hals_temporal`` updates against the JAX functions with
 ``colored=True``, the only order the port runs.
 """
@@ -20,7 +23,8 @@ from cnmf_e_tpu.ops import hals as jax_hals
 from cnmf_e_tpu.ops.pallas_hals import hals_sweeps_rows_pallas
 from cnmf_e_tpu_torch.ops import coloring
 from cnmf_e_tpu_torch.ops.hals import hals_spatial, hals_temporal
-from cnmf_e_tpu_torch.ops.hals_kernels import hals_sweeps_reference
+from cnmf_e_tpu_torch.ops.hals_kernels import (block_grid_schedule,
+                                               hals_sweeps_reference)
 from tests.test_pallas_hals import _gs_oracle
 
 torch.set_num_threads(1)
@@ -167,3 +171,57 @@ def test_hals_temporal_matches_jax(all_active):
     np.testing.assert_allclose(Ct.numpy(), np.asarray(Cj), rtol=1e-4,
                                atol=1e-4)
     np.testing.assert_allclose(aat.numpy(), np.asarray(aaj), rtol=1e-5)
+
+
+@pytest.mark.parametrize("K,d,kind,masked,gate_zeros", [
+    (1, 50, "coloured", True, False),
+    (5, 2000, "block grid", False, True),
+    (5, 3050, "coloured", True, True),
+    (37, 3050, "overflow", True, True),
+    (37, 50, "block grid", True, False),
+    (192, 2000, "coloured", False, True),
+    (192, 50, "overflow", True, False),
+    (192, 3050, "block grid", False, False),
+])
+def test_plain_matches_pallas_across_schedules(K, d, kind, masked,
+                                               gate_zeros):
+    """The plain version against the JAX kernel in interpret mode at
+    2e-5 (1 + |x|), on each schedule kind: class steps of up to 64 rows
+    (free), the in-order block grid of 16 rows, and the overflow fallback,
+    whose 8-row blocks are free only inside one class."""
+    rng = np.random.default_rng(K * 31 + d)
+    X = (np.maximum(rng.standard_normal((K, d)), 0)
+         * (rng.random((K, d)) < 0.2)).astype(np.float32)
+    mask = (rng.random((K, d)) < 0.3) | (X > 0) if masked else None
+    F = rng.standard_normal((K, 32)).astype(np.float32)
+    V = (F @ F.T / 32 + np.eye(K)).astype(np.float32)
+    U = rng.standard_normal((K, d)).astype(np.float32)
+    gate = np.ones(K, bool)
+    if gate_zeros:
+        gate[::3] = False
+    relu = masked or kind == "overflow"
+    if kind == "block grid":
+        block, sched_j = 16, None
+        sched_t = block_grid_schedule(K, block, torch.device("cpu"))
+    else:
+        block = 64 if kind == "coloured" else 8
+        classes = (np.arange(K) * 3 // K if kind == "coloured"
+                   else np.arange(K) // 12).astype(np.int32)
+        sched_j = jax_coloring.class_step_schedule(
+            jnp.asarray(classes), block=block,
+            n_cap=2 if kind == "overflow" else None)
+        sched_t = _sched_torch(sched_j)
+        if kind == "overflow" and K > 24:
+            free = np.asarray(sched_j[2])[:int(sched_j[3])]
+            assert 0 < free.sum() < len(free)       # both kinds of step
+    want = np.asarray(hals_sweeps_rows_pallas(
+        jnp.asarray(U), jnp.asarray(V), jnp.asarray(X),
+        gate=jnp.asarray(gate),
+        mask=None if mask is None else jnp.asarray(mask), n_iter=3,
+        block=block, relu=relu, schedule=sched_j, interpret=True))
+    got = hals_sweeps_reference(
+        torch.tensor(U), torch.tensor(V), torch.tensor(X),
+        torch.tensor(gate), sched_t,
+        mask=None if mask is None else torch.tensor(mask), n_iter=3,
+        block=block, relu=relu).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)

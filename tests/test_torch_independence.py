@@ -1,0 +1,120 @@
+"""The PyTorch port stands alone: it imports nothing of JAX or of the JAX
+package, and its own copies of the JAX package's pure-numpy modules (the
+params, the movie simulation, the metrics, the connected components) give
+the same results. Its entry points default to the card."""
+
+import ast
+import dataclasses
+import inspect
+import json
+import os
+
+import numpy as np
+import pytest
+
+from cnmf_e_tpu import config as jax_config
+from cnmf_e_tpu.native import connected_components as jax_cc
+from cnmf_e_tpu.utils import metrics as jax_metrics
+from cnmf_e_tpu.utils import simulate as jax_simulate
+from cnmf_e_tpu_torch import config, convert
+from cnmf_e_tpu_torch.models.merge import connected_components
+from cnmf_e_tpu_torch.models.pipeline import CNMFE
+from cnmf_e_tpu_torch.utils import metrics, simulate
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_FILES = sorted(
+    os.path.relpath(os.path.join(root, f), REPO)
+    for top in ("cnmf_e_tpu_torch", "scripts_torch")
+    for root, _, files in os.walk(os.path.join(REPO, top))
+    for f in files if f.endswith(".py")) + ["chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(os.path.join(REPO, path)).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_port_file_imports_neither_jax_nor_the_jax_package(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "cnmf_e_tpu")]
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("make", [
+    lambda c: c.CNMFEParams(),
+    lambda c: c.CNMFEParams.preset_1p(),
+    lambda c: c.CNMFEParams.preset_2p(),
+    lambda c: c.CNMFEParams.preset_2p("ar2_thresholded"),
+], ids=["default", "preset_1p", "preset_2p", "preset_2p_ar2"])
+def test_params_copy_equals_the_jax_package(make):
+    ours, theirs = make(config), make(jax_config)
+    assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert ours.to_json() == theirs.to_json()
+    # and the converter hands the JAX tests' params to the port
+    got = convert.params_from_dict(dataclasses.asdict(theirs))
+    assert isinstance(got, config.CNMFEParams) and got == ours
+    assert convert.params_from_dict(json.loads(theirs.to_json())) == ours
+
+
+def test_params_from_dict_rejects_unknown_fields():
+    d = dataclasses.asdict(config.CNMFEParams())
+    d["init"]["no_such_field"] = 1
+    with pytest.raises(ValueError, match="no_such_field"):
+        convert.params_from_dict(d)
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 200])
+@pytest.mark.parametrize("density", [0.0, 0.02, 0.1, 0.3])
+def test_connected_components_match_the_native_union_find(n, density):
+    rng = np.random.default_rng(n * 100 + int(density * 100))
+    adj = rng.random((n, n)) < density
+    adj = adj | adj.T
+    labels, count = connected_components(adj)
+    want_labels, want_count = jax_cc(adj)
+    assert count == want_count
+    np.testing.assert_array_equal(labels, want_labels)
+    assert labels.dtype == np.int32
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_simulate_movie_copy_is_bit_identical(seed):
+    kw = dict(seed=seed, H=40, W=36, T=150, K=6, gSig=2.5, sn=0.08,
+              bg_strength=0.7, min_dist=8.0, spike_rate=0.04)
+    ours, theirs = simulate.simulate_movie(**kw), \
+        jax_simulate.simulate_movie(**kw)
+    for f in dataclasses.fields(jax_simulate.GroundTruth):
+        a, b = getattr(ours, f.name), getattr(theirs, f.name)
+        if isinstance(b, np.ndarray):
+            assert a.dtype == b.dtype, f.name
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+        else:
+            assert a == b, f.name
+
+
+def test_detection_f1_copy_agrees():
+    gt = jax_simulate.simulate_movie(seed=3, H=48, W=48, T=60, K=8,
+                                     min_dist=8.0)
+    rng = np.random.default_rng(0)
+    est = np.concatenate([gt.A[:6] * (1 + 0.1 * rng.random(gt.A[:6].shape)),
+                          rng.random((2, 48, 48)) * (rng.random((2, 48, 48))
+                                                     > 0.97)])
+    ours, theirs = metrics.detection_f1(est, gt.A), \
+        jax_metrics.detection_f1(est, gt.A)
+    for k in ("f1", "precision", "recall", "matches"):
+        assert ours[k] == theirs[k], k
+    np.testing.assert_array_equal(ours["iou"], theirs["iou"])
+    C = rng.random((8, 60))
+    np.testing.assert_array_equal(
+        metrics.trace_corr(C, gt.C, ours["matches"]),
+        jax_metrics.trace_corr(C, gt.C, theirs["matches"]))
+
+
+def test_entry_points_default_to_the_card():
+    assert CNMFE(config.CNMFEParams.preset_1p()).device.type == "cuda"
+    for fn in (convert.state_from_numpy, convert.step_state_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -18,6 +18,7 @@ import torch
 from cnmf_e_tpu.config import DeconvParams
 from cnmf_e_tpu.ops import oasis as jax_oasis
 from cnmf_e_tpu.ops import pallas_oasis as jax_pallas
+from cnmf_e_tpu_torch.config import DeconvParams as TorchDeconvParams
 from cnmf_e_tpu_torch.ops import oasis_kernels
 from cnmf_e_tpu_torch.ops.ar import choose_smin, estimate_time_constant
 from cnmf_e_tpu_torch.ops.oasis import deconvolve, foopsi_ar1, oasis_ar1
@@ -167,7 +168,7 @@ def test_deconvolve_default_params_matches_jax():
     y, _ = _traces(K, T, seed=31, sn=0.1)
     params = DeconvParams()
     rj = jax_oasis.deconvolve(jnp.asarray(y), params)
-    rt = deconvolve(torch.tensor(y), params)
+    rt = deconvolve(torch.tensor(y), TorchDeconvParams())
     np.testing.assert_allclose(rt.g.numpy(), np.asarray(rj.g), atol=1e-5)
     np.testing.assert_allclose(rt.smin.numpy(), np.asarray(rj.smin),
                                rtol=1e-4, atol=1e-6)

@@ -31,7 +31,8 @@ from cnmf_e_tpu.ops import noise as jnoise
 from cnmf_e_tpu.ops import ring as jring
 from cnmf_e_tpu.ops import stats as jstats
 from cnmf_e_tpu.utils.simulate import simulate_movie
-from cnmf_e_tpu_torch.convert import state_from_numpy, state_to_numpy
+from cnmf_e_tpu_torch.convert import (params_from_dict, state_from_numpy,
+                                      state_to_numpy)
 from cnmf_e_tpu_torch.models import background as tbg
 from cnmf_e_tpu_torch.models import initialize as tinit
 from cnmf_e_tpu_torch.models import merge as tmerge
@@ -72,6 +73,11 @@ def sim():
     return simulate_movie(seed=3, H=29, W=31, T=160, K=5, gSig=2.0,
                           sn=0.05, bg_strength=0.6, min_dist=8.0,
                           spike_rate=0.05)
+
+
+def _tp(params):
+    """The port's own params with the same fields as the JAX ``params``."""
+    return params_from_dict(dataclasses.asdict(params))
 
 
 def _params(ssub=1, **kw):
@@ -376,19 +382,20 @@ def test_background_stages_match_jax(sim, state_np, ssub):
     Y = sim.Y
     sn = jnoise.noise_psd_frames(jnp.asarray(Y))
     d = {k: v for k, v in state_np.items() if not k.startswith("ring_")}
-    st_j, st_t = _jax_state(d), state_from_numpy(d)
+    st_j, st_t = _jax_state(d), state_from_numpy(d, device="cpu")
     for _ in range(2):
         st_j = jbg.update_background(jnp.asarray(Y), st_j, params, sn_pix=sn)
-        st_t = tbg.update_background(T_(Y), st_t, params, sn_pix=T_(sn))
+        st_t = tbg.update_background(T_(Y), st_t, _tp(params),
+                                      sn_pix=T_(sn))
     close(st_t.W.w, st_j.W.w, 1e-3, 2e-4)
     close(st_t.b0, st_j.b0, 1e-5, 1e-5)
     # evaluate both on the same weights
-    st_t = state_from_numpy(_jax_to_numpy(st_j))
-    close(tbg.background_of(T_(Y), st_t, params),
+    st_t = state_from_numpy(_jax_to_numpy(st_j), device="cpu")
+    close(tbg.background_of(T_(Y), st_t, _tp(params)),
           jbg.background_of(jnp.asarray(Y), st_j, params), 1e-4, 1e-4)
-    close(tbg.subtract_background(T_(Y), st_t, params),
+    close(tbg.subtract_background(T_(Y), st_t, _tp(params)),
           jbg.subtract_background(jnp.asarray(Y), st_j, params), 1e-4, 1e-4)
-    close(tbg.residual_movie(T_(Y), st_t, params),
+    close(tbg.residual_movie(T_(Y), st_t, _tp(params)),
           jbg.residual_movie(jnp.asarray(Y), st_j, params), 1e-4, 1e-4)
 
 
@@ -430,7 +437,7 @@ def test_initialize_greedy_matches_jax(sim, deconv):
     p = p.replace(init=dataclasses.replace(p.init, deconv_at_init=deconv,
                                            bd=1))
     st_j, info_j = jinit.initialize_greedy(jnp.asarray(sim.Y), p)
-    st_t, info_t = tinit.initialize_greedy(T_(sim.Y), p)
+    st_t, info_t = tinit.initialize_greedy(T_(sim.Y), _tp(p))
     assert info_t["seeds"] == info_j["seeds"]
     assert info_t["n_found"] == info_j["n_found"]
     _states_close(st_t, st_j, 1e-3, 1e-3)
@@ -452,7 +459,8 @@ def test_update_spatial_matches_jax(sim, state_np, circular):
     Ysig = _ysig(sim, state_np, p)
     st_j = jspatial.update_spatial(jnp.asarray(Ysig), _jax_state(state_np),
                                    p)
-    st_t = tspatial.update_spatial(T_(Ysig), state_from_numpy(state_np), p)
+    st_t = tspatial.update_spatial(
+        T_(Ysig), state_from_numpy(state_np, device="cpu"), _tp(p))
     close(st_t.A, st_j.A, 1e-4, 1e-4)
 
 
@@ -461,7 +469,8 @@ def test_update_temporal_matches_jax(sim, state_np):
     Ysig = _ysig(sim, state_np, p)
     st_j = jtemporal.update_temporal(jnp.asarray(Ysig), _jax_state(state_np),
                                      p)
-    st_t = ttemporal.update_temporal(T_(Ysig), state_from_numpy(state_np), p)
+    st_t = ttemporal.update_temporal(
+        T_(Ysig), state_from_numpy(state_np, device="cpu"), _tp(p))
     _states_close(st_t, st_j, 1e-4, 2e-4)
 
 
@@ -482,8 +491,8 @@ def test_merge_neurons_matches_jax(state_np, mode, deconv):
     p = _params()
     d = _merge_state(state_np)
     st_j, nm_j = jmerge.merge_neurons(_jax_state(d), p, mode, deconv=deconv)
-    st_t, nm_t = tmerge.merge_neurons(state_from_numpy(d), p, mode,
-                                      deconv=deconv)
+    st_t, nm_t = tmerge.merge_neurons(state_from_numpy(d, device="cpu"),
+                                      _tp(p), mode, deconv=deconv)
     assert int(nm_t) == int(nm_j) >= 1
     _states_close(st_t, st_j, 1e-4, 1e-4)
 
@@ -493,7 +502,8 @@ def test_merge_neurons_seq_matches_jax(state_np):
     d = _merge_state(state_np)
     modes = ("dist_corr", "high_corr")
     st_j, nm_j = jmerge.merge_neurons_seq(_jax_state(d), p, modes)
-    st_t, nm_t = tmerge.merge_neurons_seq(state_from_numpy(d), p, modes)
+    st_t, nm_t = tmerge.merge_neurons_seq(state_from_numpy(d, device="cpu"),
+                                          _tp(p), modes)
     assert nm_t == nm_j >= 1
     _states_close(st_t, st_j, 1e-4, 1e-4)
     np.testing.assert_allclose(tmerge.decay_times(st_t),
@@ -502,7 +512,7 @@ def test_merge_neurons_seq_matches_jax(state_np):
 
 def test_merge_stats_match_jax(state_np):
     d = _merge_state(state_np)
-    close(tmerge._merge_stats(state_from_numpy(d)),
+    close(tmerge._merge_stats(state_from_numpy(d, device="cpu")),
           jmerge._merge_stats(_jax_state(d)), 1e-4, 1e-5)
 
 
@@ -512,15 +522,16 @@ def test_qc_matches_jax(state_np):
     d["S"][2] = 0.0                                  # no spikes -> tagged
     d["A"][3] = np.where(d["A"][3] > 0.9 * d["A"][3].max(), d["A"][3], 0)
     st_j = jqc.tag_neurons(_jax_state(d), p)
-    st_t = tqc.tag_neurons(state_from_numpy(d), p)
+    st_t = tqc.tag_neurons(state_from_numpy(d, device="cpu"), _tp(p))
     same(st_t.tags, st_j.tags)
     assert int((st_t.tags != 0).sum()) >= 1
-    _states_close(tqc.remove_false_positives(state_from_numpy(d), p),
+    _states_close(tqc.remove_false_positives(state_from_numpy(d, device="cpu"),
+                                            _tp(p)),
                   jqc.remove_false_positives(_jax_state(d), p), 0, 0)
 
 
 def test_state_helpers_match_jax(state_np):
-    st_t = state_from_numpy(state_np)
+    st_t = state_from_numpy(state_np, device="cpu")
     st_j = _jax_state(state_np)
     _states_close(tstate.compact(st_t), jstate.compact(st_j), 0, 0)
     e_t = tstate.empty_state(4, 5, 6, 7)

@@ -24,7 +24,8 @@ from cnmf_e_tpu.config import (BackgroundParams, CNMFEParams, InitParams,
 from cnmf_e_tpu.models.pipeline import CNMFE as JaxCNMFE
 from cnmf_e_tpu.utils.metrics import detection_f1
 from cnmf_e_tpu.utils.simulate import simulate_movie
-from cnmf_e_tpu_torch.convert import state_from_numpy, state_to_numpy
+from cnmf_e_tpu_torch.convert import (params_from_dict, state_from_numpy,
+                                      state_to_numpy)
 from cnmf_e_tpu_torch.models.pipeline import CNMFE
 
 torch.set_num_threads(1)
@@ -45,7 +46,7 @@ def fits():
     gt = simulate_movie(seed=11, H=48, W=48, T=300, K=6, gSig=2.5, sn=0.08,
                         bg_strength=0.8, min_dist=12.0, spike_rate=0.04)
     params = _params()
-    port = CNMFE(params, device="cpu")
+    port = CNMFE(params_from_dict(dataclasses.asdict(params)), device="cpu")
     port.fit(gt.Y, n_outer=2)
     ref = JaxCNMFE(params)
     ref.fit(jnp.asarray(gt.Y), n_outer=2)
@@ -100,7 +101,7 @@ def test_state_numpy_round_trip(fits):
     d = state_to_numpy(port.state)
     assert {"A", "C", "C_raw", "S", "g", "neuron_sn", "b0", "tags",
             "ring_w", "ring_w0", "active"} <= set(d)
-    back = state_to_numpy(state_from_numpy(d))
+    back = state_to_numpy(state_from_numpy(d, device="cpu"))
     for k, v in d.items():
         np.testing.assert_array_equal(back[k], v, err_msg=k)
         assert back[k].dtype == v.dtype
@@ -108,19 +109,21 @@ def test_state_numpy_round_trip(fits):
     # loads with every slot active
     d64 = {k: (v.astype(np.float64) if v.dtype == np.float32 else v)
            for k, v in d.items() if k != "active"}
-    st = state_from_numpy(d64)
+    st = state_from_numpy(d64, device="cpu")
     assert st.A.dtype == torch.float32 and bool(st.active.all())
 
 
 def test_port_never_imports_jax():
+    """Nor anything of the JAX package: the fit runs on the port's own
+    config and simulation."""
     code = textwrap.dedent("""
         import sys
         import torch
         torch.set_num_threads(1)
         import cnmf_e_tpu_torch
-        from cnmf_e_tpu.config import (BackgroundParams, CNMFEParams,
-                                       InitParams)
-        from cnmf_e_tpu.utils.simulate import simulate_movie
+        from cnmf_e_tpu_torch.config import (BackgroundParams, CNMFEParams,
+                                             InitParams)
+        from cnmf_e_tpu_torch.utils.simulate import simulate_movie
         from cnmf_e_tpu_torch.models.pipeline import CNMFE
         gt = simulate_movie(seed=2, H=24, W=24, T=120, K=3, gSig=2.0,
                             sn=0.05, min_dist=8.0, spike_rate=0.05)
@@ -131,6 +134,9 @@ def test_port_never_imports_jax():
         import cnmf_e_tpu_torch.parallel.step
         import cnmf_e_tpu_torch.convert
         assert "jax" not in sys.modules, "jax was imported"
+        jax_pkg = sorted(m for m in sys.modules
+                         if m.split(".")[0] == "cnmf_e_tpu")
+        assert not jax_pkg, f"the JAX package was imported: {jax_pkg}"
         print("NO_JAX_OK")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -152,10 +158,11 @@ def test_kernel_wrappers_take_plain_path_only_for_cpu_tensors():
 
 
 def test_unported_options_raise():
-    p = _params()
+    p = params_from_dict(dataclasses.asdict(_params()))
     with pytest.raises(NotImplementedError):
         CNMFE(p.replace(background=dataclasses.replace(
-            p.background, model="svd"))).fit(np.zeros((20, 8, 8), np.float32))
+            p.background, model="svd")), device="cpu").fit(
+                np.zeros((20, 8, 8), np.float32))
     with pytest.raises(NotImplementedError):
-        CNMFE(p.replace(init=dataclasses.replace(p.init, ssub=2))).fit(
-            np.zeros((20, 8, 8), np.float32))
+        CNMFE(p.replace(init=dataclasses.replace(p.init, ssub=2)),
+              device="cpu").fit(np.zeros((20, 8, 8), np.float32))

@@ -79,7 +79,7 @@ def test_fused_step_matches_jax_and_explicit(problem):
     want = jstep.make_update_step(None, H, W, T, radius=radius,
                                   n_hals=1)(jnp.asarray(Y), _jax_state(d))
     got = _np(tstep.make_update_step(None, H, W, T, radius=radius, n_hals=1)(
-        torch.tensor(Y), step_state_from_numpy(d)))
+        torch.tensor(Y), step_state_from_numpy(d, device="cpu")))
     np.testing.assert_allclose(got["A"], np.asarray(want.A), atol=2e-4)
     np.testing.assert_allclose(got["C_raw"], np.asarray(want.C_raw),
                                atol=2e-3)
@@ -95,7 +95,7 @@ def test_fused_step_matches_jax_and_explicit(problem):
 
 def test_split_projection_iteration_matches_fused(problem):
     H, W, T, K, radius, Y, d = problem
-    st = step_state_from_numpy(d)
+    st = step_state_from_numpy(d, device="cpu")
     Yt = torch.tensor(Y)
     ref = tstep.make_update_step(None, H, W, T, radius=radius, n_hals=1)(
         Yt, st)
@@ -122,7 +122,7 @@ def test_chained_block_matches_sequential_calls(problem):
     it1 = tstep.make_hals_iteration(None, H, W, T, radius=radius, n_hals=1)
     it3 = tstep.make_hals_iteration(None, H, W, T, radius=radius, n_hals=1,
                                     chain=3)
-    st = step_state_from_numpy(d)
+    st = step_state_from_numpy(d, device="cpu")
     Ysig = proj(torch.tensor(Y), st)
     ref = st
     for _ in range(3):
@@ -138,7 +138,7 @@ def test_bf16_grams_match_f32_and_jax(problem):
     ``test_bf16_grams_match_f32``'s bars, and the JAX bf16 step (which
     emulates bf16 operands on the CPU the same way) to f32 rounding."""
     H, W, T, K, radius, Y, d = problem
-    st = step_state_from_numpy(d)
+    st = step_state_from_numpy(d, device="cpu")
     f32 = tstep.make_update_step(None, H, W, T, radius=radius, n_hals=1,
                                  gram_dtype="float32")(torch.tensor(Y), st)
     bf16 = tstep.make_update_step(None, H, W, T, radius=radius, n_hals=1,
@@ -166,7 +166,7 @@ def test_mxu_projection_tracks_exact(problem):
     prediction's scale, ``tests/test_pallas_ring.py``), the step within the
     bf16-Gram bars."""
     H, W, T, K, radius, Y, d = problem
-    st = step_state_from_numpy(d)
+    st = step_state_from_numpy(d, device="cpu")
     Yt = torch.tensor(Y)
     exact = tstep.make_bg_projection(None, H, W, T, radius)(Yt, st)
     mxu = tstep.make_bg_projection(None, H, W, T, radius, mxu=True)(Yt, st)
@@ -197,7 +197,7 @@ def test_colored_iteration_matches_jax():
     jit = jstep.make_hals_iteration(None, H, W, T, radius, n_hals=1,
                                     colored=True, mask_dilate=2)
     want = jit(jproj(jnp.asarray(Y), _jax_state(d)), _jax_state(d))
-    st = step_state_from_numpy(d)
+    st = step_state_from_numpy(d, device="cpu")
     tproj = tstep.make_bg_projection(None, H, W, T, radius)
     tit = tstep.make_hals_iteration(None, H, W, T, radius, n_hals=1,
                                     colored=True, mask_dilate=2)
@@ -261,7 +261,7 @@ def test_step_drift_within_reference_rounding(case):
     moved = [run_jax(np.nextafter(Y, np.float32(to)))
              for to in (np.inf, -np.inf)]
     got = tstep.make_update_step(None, H, W, T, radius=radius, **kw)(
-        torch.tensor(Y), step_state_from_numpy(d))
+        torch.tensor(Y), step_state_from_numpy(d, device="cpu"))
     self_drift = {k: max(_drift(m[k], want[k]) for m in moved) for k in keys}
     for k in keys:
         port_drift = _drift(getattr(got, k).numpy(), want[k])
@@ -283,7 +283,7 @@ def test_chain10_every5_drift_vs_jax(problem, colored):
     want = jstep.make_update_step(None, H, W, T, **kw)(jnp.asarray(Y),
                                                        _jax_state(d))
     got = tstep.make_update_step(None, H, W, T, **kw)(
-        torch.tensor(Y), step_state_from_numpy(d))
+        torch.tensor(Y), step_state_from_numpy(d, device="cpu"))
     assert _drift(got.C.numpy(), np.asarray(want.C)) <= 1e-3
     assert _drift(got.A.numpy(), np.asarray(want.A)) <= 1e-3
     np.testing.assert_allclose(got.S.numpy(), np.asarray(want.S), atol=5e-3)
@@ -372,7 +372,7 @@ def test_mesh_raises_and_state_roundtrip(problem):
                   tstep.make_update_step):
         with pytest.raises(NotImplementedError):
             build(object(), H, W, T, radius)
-    back = step_state_to_numpy(step_state_from_numpy(d))
+    back = step_state_to_numpy(step_state_from_numpy(d, device="cpu"))
     assert sorted(back) == sorted(d)
     for k, v in d.items():
         np.testing.assert_array_equal(back[k], v)
