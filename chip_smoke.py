@@ -13,7 +13,12 @@ Phases (each fails the script when its check fails):
      edge shapes (K from 1 to 4000, mixed schedules, gate zeros, masks);
      the banded bf16 ring products also against the f32 stencil; the
      stencil also at the fit's own shapes (the 128x128 coarse grid,
-     radius 9, with and without the intercept);
+     radius 9, with and without the intercept), and torch.sparse.mm of
+     the ring matrix timed beside it as the library yardstick; the OASIS
+     kernels K2 -> K3 -> K4 at both launch shapes of the fit (K = 64 and
+     192) with their device times, and at edge cases (chunks of 18, 32,
+     64 and 256, one trace, T = 2500, monotone traces, smin = 0, lam > 0),
+     pool starts, lengths and counts equal to the plain versions';
   3. end-to-end consistency: CNMFE.fit on a small simulated movie on the
      card and on the CPU must agree;
   4. the fit at full size: CNMFE.fit with the 1p preset on a simulated
@@ -64,6 +69,7 @@ from cnmf_e_tpu_torch.ops.coloring import (  # noqa: E402
 from cnmf_e_tpu_torch.ops.morphology import (  # noqa: E402
     search_locations_dilate)
 from cnmf_e_tpu_torch.ops.noise import noise_psd  # noqa: E402
+from cnmf_e_tpu_torch.ops.oasis import pass1_input  # noqa: E402
 from cnmf_e_tpu_torch.ops.ring import apply_ring  # noqa: E402
 from cnmf_e_tpu_torch.parallel.step import (  # noqa: E402
     make_bg_projection, make_update_step)
@@ -359,66 +365,231 @@ def phase2_kernels(K=192, H=256, W=256, T=2000):
         bound_by=fit["bound_by"], library_ms=fit["library_ms"],
         cases=cases)
 
-    # K2 -> K3 -> K4: the foopsi deconvolution of K traces of T frames
+    results.update(phase2_oasis(C, gen))
+    return results
+
+
+# ------------------------------------------------------------------ #
+# phase 2, K2 -> K3 -> K4: the foopsi deconvolution
+# ------------------------------------------------------------------ #
+def device_ms(fns: dict, reps: int, spin: int = 50_000_000) -> dict:
+    """Device time, in ms, of one call of each ``fns[name]``, every kernel
+    it launches included (K4's wrapper also zero-fills its outputs):
+    ``reps`` calls queued behind a spin kernel of ``spin`` cycles, which
+    holds the stream until the host has queued them all, and timed by CUDA
+    events around the calls alone. The wrappers' host work is then not in
+    the time; the gaps between back-to-back launches are. torch.profiler
+    would give the kernels' own times, but now and then it returns a
+    session with no device events, which would fail the run."""
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        while True:
+            s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+            s.record()
+            torch.cuda._sleep(spin)
+            a.record()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            b.record()
+            torch.cuda.synchronize()
+            if host_ms < s.elapsed_time(a):
+                break
+            spin *= 2       # the host was still queueing when the spin ended
+        out[name] = a.elapsed_time(b) / reps
+    return out
+
+
+def pools_err(a, b, what: str) -> float:
+    """Pool starts, lengths and counts equal; values within 1e-4 (1+|x|)."""
+    for x, z in zip(a[2:], b[2:]):
+        require(torch.equal(x, z), f"{what}: OASIS pool starts/lengths/"
+                f"counts differ from the plain version")
+    errs = [(x - z).abs() for x, z in zip(a[:2], b[:2])]
+    require(all(bool((e <= 1e-4 * (1 + z.abs())).all())
+                for e, z in zip(errs, b[:2])),
+            f"{what}: OASIS pool values differ from the plain version")
+    return max(float(e.max()) for e in errs)
+
+
+def live_pool_bytes(pools) -> int:
+    """The bytes of the live pools of ``pools`` and of their counts."""
+    n = pools[4]
+    return int(n.sum()) * 16 + nbytes(n)
+
+
+OASIS_NAMES = ("oasis_chunk_pools", "oasis_pool_merge", "oasis_reconstruct")
+
+
+def oasis_case(what, vinit, g, smin, L, timed=False):
+    """K2 -> K3 -> K4 on one problem, each against its plain version on the
+    same input (K3 and K4 on the kernels' own output). Returns each
+    kernel's error, its device time per launch (``ms``, by
+    :func:`device_ms`) and the CUDA-event time of one wrapper call
+    (``call_ms``); with ``timed`` also the plain version's
+    time and the kernel's bound (the bytes it must move; the pool
+    arithmetic is a few operations a sample)."""
+    K, Tp = vinit.shape
+
+    def k2():
+        return oasis_kernels.oasis_chunk_pools(vinit, g, smin, L)
+
+    def k2_plain():
+        return oasis_kernels.oasis_chunk_pools_reference(vinit, g, smin, L)
+
+    p1k = k2()
+    errs = [pools_err(p1k, k2_plain(), f"oasis_chunk_pools {what}")]
+
+    def k3():
+        return oasis_kernels.oasis_pool_merge(*p1k, g, smin)
+
+    def k3_plain():
+        return oasis_kernels.oasis_pool_merge_reference(*p1k, g, smin)
+
+    p2k = k3()
+    errs.append(pools_err(p2k, k3_plain(), f"oasis_pool_merge {what}"))
+
+    def k4():
+        return oasis_kernels.oasis_reconstruct(*p2k, g, Tp)
+
+    def k4_plain():
+        return oasis_kernels.oasis_reconstruct_reference(*p2k, g, Tp)
+
+    (ck, sk), (cp, sp) = k4(), k4_plain()
+    errs.append(max(float((ck - cp).abs().max()),
+                    float((sk - sp).abs().max())))
+    require(errs[2] <= 1e-4, f"oasis_reconstruct {what} disagrees with its "
+            f"plain version")
+    calls = dict(zip(OASIS_NAMES, ((k2, k2_plain), (k3, k3_plain),
+                                   (k4, k4_plain))))
+    # bytes each function must move: K2 reads the traces; K3 and K4 read
+    # only the live pools (v, w, t0, len: 16 bytes each) and the counts; K2
+    # and K3 write every slot of their pool arrays, K4 writes c and s
+    nbs = (nbytes(vinit, g, smin, *p1k),
+           live_pool_bytes(p1k) + nbytes(g, smin, *p2k),
+           live_pool_bytes(p2k) + nbytes(g, ck, sk))
+    dev = device_ms({name: c[0] for name, c in calls.items()},
+                    20 if timed else 5)
+    out = {}
+    line = f"phase 2: OASIS {what} K={K} Tp={Tp} L={L}:"
+    for (name, (kernel, plain)), e, nb in zip(calls.items(), errs, nbs):
+        res = dict(max_abs_err=e, ms=dev[name], call_ms=cuda_ms(kernel, 5))
+        line += (f" {name} err {e:.2e} kernel {res['ms']:.4f} ms (call "
+                 f"{res['call_ms']:.4f})")
+        if timed:
+            bms, by = bound(0.0, nb)
+            res.update(plain_ms=cuda_ms(plain, 3), bound_ms=bms, bound_by=by,
+                       library_ms=None)
+            line += (f", bound {bms:.4f} ({by}), plain "
+                     f"{res['plain_ms']:.3f}")
+        line += ";"
+        out[name] = res
+    out["oasis_pool_merge"]["pools"] = int(p2k[4].sum())
+    print(line + " (kernel: device time of back-to-back launches; call: "
+          "CUDA events around one wrapper call)", flush=True)
+    return out
+
+
+def phase2_oasis(C, gen, L=128):
+    """K2 -> K3 -> K4 at both launch shapes of the fit (K = 64 seeds in the
+    init rounds, K = 192 slots in the temporal updates, merges and the
+    step; T = 2000 padded to 2048, L = 128, smin = 5 sn), then at edge
+    cases, each held to the plain versions: chunks of 18, 32, 64 and 256;
+    one trace; T = 2500, not a multiple of L; strictly increasing traces (no
+    pool merges, pass 2 is all appends) and strictly decreasing ones (one
+    pool per trace, every seam cascades); smin = 0; lam > 0."""
+    K, T = C.shape
     y = C + 0.1 * torch.randn(C.shape, generator=gen, device=DEV)
     sn = noise_psd(y)
     g = estimate_time_constant(y, p=1, sn=sn)[:, 0].contiguous()
     smin = (5.0 * sn).contiguous()
-    L = 128
+    yb = y - torch.quantile(y, 0.15, dim=-1)[:, None]
+    zero = torch.zeros(K, device=DEV)
+
+    def vinit(y, L, lam=zero):
+        return pass1_input(y, g[:len(y)], lam[:len(y)], L)
+    cases = {}
+    for k in (64, K):
+        cases[f"K={k}"] = oasis_case(
+            "fit shape", vinit(yb[:k], L), g[:k].contiguous(),
+            smin[:k].contiguous(), L, timed=True)
+    vin = vinit(yb, L)
+    # 18: below a warp, and not a multiple of the 4-sample vector loads
+    for Le in (18, 32, 64, 256):
+        cases[f"L={Le}"] = oasis_case(f"L={Le}", vinit(yb, Le), g, smin, Le)
+    cases["K=1"] = oasis_case("K=1", vin[:1].contiguous(), g[:1].contiguous(),
+                              smin[:1].contiguous(), L)
+    y25 = torch.cat([yb, yb[:, :500]], 1)
+    cases["T=2500"] = oasis_case("T=2500", vinit(y25, L), g, smin, L)
+    t = torch.arange(T, device=DEV, dtype=torch.float32)
+    rows = torch.arange(8, device=DEV, dtype=torch.float32)[:, None]
+    g8 = torch.full((8,), 0.998, device=DEV)
+    zero8 = torch.zeros(8, device=DEV)
+    up = 1.0 + rows + t / 64.0
+    down = (10.0 + rows) * 0.995 ** t
+    for what, tr, sm in (("increasing, smin=0", up, zero8),
+                         ("decreasing, smin=0", down, zero8),
+                         ("decreasing, smin>0", down, zero8 + 0.05)):
+        cases[what] = oasis_case(what, pass1_input(tr, g8, zero8, L), g8, sm,
+                                 L)
+    cases["smin=0"] = oasis_case("smin=0", vin, g, torch.zeros_like(smin), L)
+    cases["lam>0"] = oasis_case("lam=0.5", vinit(yb, L, zero + 0.5), g,
+                                smin, L)
     Tp = -(-T // L) * L
-    vinit = y - torch.quantile(y, 0.15, dim=-1)[:, None]
-    ramp = 1.0 + torch.arange(Tp - T, device=DEV, dtype=torch.float32)
-    big = vinit.abs().max() * 2.0 + 1e6
-    vinit = torch.cat([vinit, (big * ramp)[None].expand(K, -1)], 1)
-    vinit = vinit.contiguous()
-
-    def pools_err(a, b):
-        for x, z in zip(a[2:], b[2:]):
-            require(torch.equal(x, z), "OASIS pool starts/lengths/counts "
-                    "differ from the plain version")
-        errs = [(x - z).abs() for x, z in zip(a[:2], b[:2])]
-        require(all(bool((e <= 1e-4 * (1 + z.abs())).all())
-                    for e, z in zip(errs, b[:2])),
-                "OASIS pool values differ from the plain version")
-        return max(float(e.max()) for e in errs)
-
-    # bounds: bytes in and out; the pool arithmetic is a few operations
-    # per sample, far under the bytes
-    p1k = oasis_kernels.oasis_chunk_pools(vinit, g, smin, L)
-    p1p = oasis_kernels.oasis_chunk_pools_reference(vinit, g, smin, L)
-    err = pools_err(p1k, p1p)
-    ms = cuda_ms(lambda: oasis_kernels.oasis_chunk_pools(vinit, g, smin, L), 5)
-    pms = cuda_ms(lambda: oasis_kernels.oasis_chunk_pools_reference(
-        vinit, g, smin, L), 3)
-    results["oasis_chunk_pools"] = (err, ms, pms,
-                                    nbytes(vinit, g, smin, *p1k))
-
-    p2k = oasis_kernels.oasis_pool_merge(*p1k, g, smin)
-    p2p = oasis_kernels.oasis_pool_merge_reference(*p1k, g, smin)
-    err = pools_err(p2k, p2p)
-    ms = cuda_ms(lambda: oasis_kernels.oasis_pool_merge(*p1k, g, smin), 5)
-    pms = cuda_ms(lambda: oasis_kernels.oasis_pool_merge_reference(
-        *p1k, g, smin), 3)
-    results["oasis_pool_merge"] = (err, ms, pms, nbytes(*p1k, g, smin, *p2k))
-
-    ck, sk = oasis_kernels.oasis_reconstruct(*p2k, g, Tp)
-    cp, sp = oasis_kernels.oasis_reconstruct_reference(*p2k, g, Tp)
-    err = max(float((ck - cp).abs().max()), float((sk - sp).abs().max()))
-    require(err <= 1e-4, "oasis_reconstruct disagrees with its plain version")
-    ms = cuda_ms(lambda: oasis_kernels.oasis_reconstruct(*p2k, g, Tp), 5)
-    pms = cuda_ms(lambda: oasis_kernels.oasis_reconstruct_reference(
-        *p2k, g, Tp), 3)
-    results["oasis_reconstruct"] = (err, ms, pms, nbytes(*p2k, g, ck, sk))
-    for name in ("oasis_chunk_pools", "oasis_pool_merge",
-                 "oasis_reconstruct"):
-        e, ms, pms, nb = results[name]
-        bms, by = bound(0.0, nb)
-        results[name] = dict(max_abs_err=e, ms=ms, plain_ms=pms,
-                             bound_ms=bms, bound_by=by, library_ms=None)
-        print(f"phase 2: {name} K={K} T={T} L={L}: max_abs_err {e:.3e} "
-              f"(tol 1e-4) kernel {ms:.3f} ms, bound {bms:.4f} ms ({by}), "
-              f"plain {pms:.3f} ms", flush=True)
+    require(cases["increasing, smin=0"]["oasis_pool_merge"]["pools"]
+            == 8 * Tp, "an increasing trace merged pools")
+    require(cases["decreasing, smin=0"]["oasis_pool_merge"]["pools"]
+            == 8 * (1 + Tp - T), "a decreasing trace did not end as one "
+            "pool (beside its never-merging padding)")
+    results = {}
+    for name in OASIS_NAMES:
+        main = cases[f"K={K}"][name]
+        results[name] = dict(
+            main, max_abs_err=max(c[name]["max_abs_err"]
+                                  for c in cases.values()),
+            cases={what: c[name] for what, c in cases.items()})
     return results
+
+
+def ring_csr(w, H: int, W: int, radius: int):
+    """The ring apply's (d, d) matrix as a CSR tensor: row p holds w[p, r]
+    at column p + offset_r for each tap inside the field of view."""
+    offsets = ring_kernels.ring_offsets(radius)
+    R, d = offsets.shape[0], H * W
+    dy, dx = (torch.as_tensor(offsets[:, i], device=DEV) for i in (0, 1))
+    hh = (torch.arange(H, device=DEV)[:, None, None] + dy).expand(H, W, R)
+    ww = (torch.arange(W, device=DEV)[None, :, None] + dx).expand(H, W, R)
+    valid = ((hh >= 0) & (hh < H) & (ww >= 0) & (ww < W)).reshape(d, R)
+    rows = torch.arange(d, device=DEV)[:, None].expand(d, R)
+    cols = (hh * W + ww).reshape(d, R)
+    return torch.sparse_coo_tensor(
+        torch.stack([rows[valid], cols[valid]]), w[valid], (d, d)
+    ).coalesce().to_sparse_csr()
+
+
+def ring_library(w, w0, X, H: int, W: int, radius: int) -> float:
+    """The time of one torch.sparse.mm (cuSPARSE) of the ring matrix as a
+    CSR (d, d) tensor with the (d, T) movie: the ring apply without its
+    w0 add, a yardstick the port never calls. The matrix and the
+    transposed movie are built outside the timing; the product is checked
+    against K6's output less w0."""
+    T = X.shape[0]
+    Wcsr = ring_csr(w, H, W, radius)
+    Xd = X.reshape(T, H * W).T.contiguous()
+    ref = (ring_kernels.apply_ring_stencil(w, w0, X, H, W, radius)
+           - w0.reshape(1, H, W)).reshape(T, H * W).T
+    e = (torch.sparse.mm(Wcsr, Xd) - ref).abs()
+    require(bool((e <= 1e-4 * (1 + ref.abs())).all()),
+            "torch.sparse.mm of the ring matrix disagrees with K6")
+    ms = cuda_ms(lambda: torch.sparse.mm(Wcsr, Xd), 5)
+    print(f"phase 2: library torch.sparse.mm (CSR, {Wcsr.values().numel()} "
+          f"nonzeros) of the ring matrix with the movie {H}x{W}x{T} "
+          f"radius={radius}, w0 add left out: {ms:.3f} ms, max_abs_err "
+          f"{float(e.max()):.3e} against K6 less w0", flush=True)
+    return ms
 
 
 def phase2_ring(H=256, W=256, T=2000):
@@ -506,6 +677,10 @@ def phase2_ring(H=256, W=256, T=2000):
         print(f"phase 2: {name} {H}x{W}x{T} radius={RADIUS}: kernel "
               f"{ms:.3f} ms, bound {bms:.3f} ms ({by}), plain {pms:.3f} ms",
               flush=True)
+    # one PyTorch call of the same function (without w0) for all three
+    lib_ms = ring_library(w, w0, X, H, W, RADIUS)
+    for res in results.values():
+        res["library_ms"] = lib_ms
     ms_bands = cuda_ms(lambda: ring_kernels.ring_dense_bands(
         weight_sets["random"], H, W, RADIUS), 3)
     print(f"phase 2: ring_dense_bands (plain PyTorch scatter, "
@@ -547,9 +722,10 @@ def phase2_ring_fit_grid(H=128, W=128, T=2000, radius=9):
     print(f"phase 2: ring_stencil fit grid {H}x{W}x{T} radius={radius}: "
           f"kernel {ms:.3f} ms, bound {bms:.3f} ms ({by}), plain {pms:.3f} ms",
           flush=True)
+    lib_ms = ring_library(wts.w, wts.w0, X, H, W, radius)
     return {"shape": f"T={T} H={H} W={W} radius={radius}",
             "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms,
-            "bound_by": by}
+            "bound_by": by, "library_ms": lib_ms}
 
 
 # ------------------------------------------------------------------ #
@@ -754,7 +930,8 @@ def main():
     print(f"phase 1: built and loaded the CUDA kernels in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for line in cuda_build.build_info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
+        if ("registers" in line or "spill" in line
+                or "Function properties" in line):
             print(f"phase 1: ptxas {line.strip()}")
 
     results = phase2_kernels()

@@ -37,6 +37,31 @@ def _per_trace(x, batch, like: torch.Tensor) -> torch.Tensor:
     return torch.broadcast_to(x, batch).reshape(-1).contiguous()
 
 
+def chunk_length(chunk: int) -> int:
+    """The chunk length L that :func:`oasis_ar1` runs for ``chunk``."""
+    return chunk if chunk > 0 else 128
+
+
+def pass1_input(y: torch.Tensor, g: torch.Tensor, lam: torch.Tensor,
+                L: int) -> torch.Tensor:
+    """The lambda-adjusted traces that pass 1 takes: y (K, T) float32 and
+    g, lam (K,) -> (K, Tp), Tp the multiple of L at or above T."""
+    K, T = y.shape
+    vinit = y - lam[:, None] * (1.0 - g[:, None])
+    vinit[:, T - 1] = y[:, T - 1] - lam
+    Tp = -(-T // L) * L
+    if Tp != T:
+        # strictly increasing pad samples, far above the trace: they never
+        # merge, so the real pools (and the last real sample's y - lam)
+        # are untouched
+        big = vinit.abs().max() * 2.0 + 1e6
+        ramp = 1.0 + torch.arange(Tp - T, dtype=torch.float32,
+                                  device=y.device)
+        vinit = torch.cat([vinit, (big * ramp)[None, :].expand(K, -1)],
+                          dim=1)
+    return vinit.contiguous()
+
+
 def oasis_ar1(y: torch.Tensor, g, lam=0.0, smin=0.0,
               chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched exact OASIS AR(1). y: (..., T); g/lam/smin scalars or
@@ -48,26 +73,13 @@ def oasis_ar1(y: torch.Tensor, g, lam=0.0, smin=0.0,
     batch = y.shape[:-1]
     T = y.shape[-1]
     yf = y.reshape(-1, T).to(torch.float32)
-    K = yf.shape[0]
-    if K == 0:
+    if yf.shape[0] == 0:
         return y.clone(), torch.zeros_like(y)
     g, lam, smin = (_per_trace(x, batch, yf) for x in (g, lam, smin))
-    vinit = yf - lam[:, None] * (1.0 - g[:, None])
-    vinit[:, T - 1] = yf[:, T - 1] - lam
-    L = chunk if chunk > 0 else 128
-    Tp = -(-T // L) * L
-    if Tp != T:
-        # strictly increasing pad samples, far above the trace: they never
-        # merge, so the real pools (and the last real sample's y - lam)
-        # are untouched
-        big = vinit.abs().max() * 2.0 + 1e6
-        ramp = 1.0 + torch.arange(Tp - T, dtype=torch.float32,
-                                  device=yf.device)
-        vinit = torch.cat([vinit, (big * ramp)[None, :].expand(K, -1)],
-                          dim=1)
-    pools = oasis_chunk_pools(vinit.contiguous(), g, smin, L)
+    L = chunk_length(chunk)
+    pools = oasis_chunk_pools(pass1_input(yf, g, lam, L), g, smin, L)
     v, w, ts, ln, n = oasis_pool_merge(*pools, g, smin)
-    c, s = oasis_reconstruct(v, w, ts, ln, n, g, Tp)
+    c, s = oasis_reconstruct(v, w, ts, ln, n, g, v.shape[1])
     return c[:, :T].reshape(y.shape), s[:, :T].reshape(y.shape)
 
 

@@ -13,6 +13,23 @@ CUDA tensors launch the kernels in ``csrc/oasis.cu``; CPU tensors run the
 ``*_reference`` versions, which execute the same per-lane algorithm in
 lockstep over lanes. Pool arrays hold (v, w, t0, len) per slot; slots at or
 past a lane's count hold (0, 1, 0, 0).
+
+On the card the first two are bound by serial chains of dependent pushes
+and merges, not by their few MB of bytes (the note at the head of
+``csrc/oasis.cu``):
+
+  * pass 1 runs one thread per (trace, chunk) lane in 32-lane CTAs, its
+    stack in shared memory (slot-major, one bank per lane) and its top two
+    pools in registers; the stack caps the chunk at ``K2_MAX_L`` samples
+    (:func:`check_chunk`);
+  * pass 2 runs one warp per trace. Pass 1 leaves no two adjacent pools of
+    a chunk violating each other, so once a pushed pool of a chunk does not
+    merge, the rest of that chunk's list is appended untested. Its input
+    must therefore be pass 1's output. The plain version pushes every pool
+    and so checks the shortcut rather than assuming it.
+
+Both kernels write every output slot, so their wrappers allocate with
+``torch.empty``.
 """
 
 from __future__ import annotations
@@ -27,6 +44,16 @@ Pools = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
               torch.Tensor]
 
 _f32, _i32 = torch.float32, torch.int32
+# pass 1 keeps three L-slot stacks of 32 lanes in one CTA's shared memory,
+# of which Hopper gives a CTA at most 232,448 bytes
+K2_MAX_L = 232448 // (3 * 32 * 4)
+
+
+def check_chunk(L: int) -> None:
+    """Raise ValueError for a chunk longer than pass 1's kernel holds."""
+    if L > K2_MAX_L:
+        raise ValueError(f"chunk L={L} exceeds the {K2_MAX_L} samples whose "
+                         f"pool stacks fit in one CTA's shared memory")
 
 
 def _logg(g: torch.Tensor) -> torch.Tensor:
@@ -45,6 +72,12 @@ def _empty_pools(shape, device):
             torch.ones(shape, dtype=_f32, device=device),
             torch.zeros(shape, dtype=_i32, device=device),
             torch.zeros(shape, dtype=_i32, device=device))
+
+
+def _uninit_pools(shape, device):
+    """Pool arrays for a kernel that writes every slot."""
+    return tuple(torch.empty(shape, dtype=dt, device=device)
+                 for dt in (_f32, _f32, _i32, _i32))
 
 
 # --------------------------------------------------------------------- #
@@ -159,8 +192,9 @@ def oasis_chunk_pools(vinit: torch.Tensor, g: torch.Tensor,
         return oasis_chunk_pools_reference(vinit, g, smin, L)
     check_cuda(vinit, g, smin, dtypes=(_f32, _f32, _f32))
     _check_shapes((g, (K,)), (smin, (K,)))
+    check_chunk(L)
     nc = T // L
-    v, w, ts, ln = _empty_pools((K, nc, L), vinit.device)
+    v, w, ts, ln = _uninit_pools((K, nc, L), vinit.device)
     n = torch.empty((K, nc), dtype=_i32, device=vinit.device)
     launch("oasis_chunk_pools", vinit.device, vinit, g, smin, K, nc, L,
            v, w, ts, ln, n)
@@ -168,8 +202,9 @@ def oasis_chunk_pools(vinit: torch.Tensor, g: torch.Tensor,
 
 
 def oasis_pool_merge(v0, w0, ts0, l0, n_in, g, smin) -> Pools:
-    """Pass 2. Chunk-major pool lists (K, nc, L) with counts n_in (K, nc)
-    -> merged pools (K, nc * L) packed from slot 0, counts n (K,)."""
+    """Pass 2. Chunk-major pool lists (K, nc, L) with counts n_in (K, nc),
+    as pass 1 left them -> merged pools (K, nc * L) packed from slot 0,
+    counts n (K,)."""
     if not v0.is_cuda:
         return oasis_pool_merge_reference(v0, w0, ts0, l0, n_in, g, smin)
     check_cuda(v0, w0, ts0, l0, n_in, g, smin,
@@ -177,7 +212,7 @@ def oasis_pool_merge(v0, w0, ts0, l0, n_in, g, smin) -> Pools:
     K, nc, L = v0.shape
     _check_shapes((w0, v0.shape), (ts0, v0.shape), (l0, v0.shape),
                   (n_in, (K, nc)), (g, (K,)), (smin, (K,)))
-    v, w, ts, ln = _empty_pools((K, nc * L), v0.device)
+    v, w, ts, ln = _uninit_pools((K, nc * L), v0.device)
     n = torch.empty((K,), dtype=_i32, device=v0.device)
     launch("oasis_pool_merge", v0.device, v0, w0, ts0, l0, n_in, g, smin,
            K, nc, L, v, w, ts, ln, n)

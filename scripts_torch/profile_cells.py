@@ -8,7 +8,8 @@ Cells: ``fit`` (phase 4: ``CNMFE.fit`` with the 1p preset on the simulated
 n_hals = 1, ``chain=10``). Runs the cell once to warm up, once timed
 (CUDA events for a step, the host clock after a synchronise for the fit),
 then once under torch.profiler. Prints the device time by op and kernel
-(the top 25), the device busy time (the union of the kernels' intervals)
+(the top 25), the device time and launches of each of the port's own
+kernels, the device busy time (the union of the kernels' intervals)
 against the profiled wall, and the share of the wall the device sat idle;
 with ``--out DIR`` it also writes them to ``DIR/profile_<cell>.txt``.
 """
@@ -94,6 +95,22 @@ def main():
     busy_ms = busy_us / 1e3
     table = prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=25)
+    # the port's kernels, by their names in csrc/ (K5 and K7 share one)
+    ours = {k: [0, 0.0] for k in ("hals_sweeps_kernel",
+                                  "oasis_chunk_pools_kernel",
+                                  "oasis_pool_merge_kernel",
+                                  "oasis_reconstruct_kernel",
+                                  "ring_stencil_kernel",
+                                  "ring_banded_kernel")}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for k in ours:
+            if k in e.name:
+                ours[k][0] += 1
+                ours[k][1] += (e.time_range.end - e.time_range.start) / 1e3
+    table += "\nthe port's kernels: " + ", ".join(
+        f"{k} {n} launches {ms:.3f} ms" for k, (n, ms) in ours.items())
     head = (f"{what} on {torch.cuda.get_device_name(0)}: {timed}; "
             f"profiled wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
             f"(union of {len(spans)} device intervals), idle share "
