@@ -11,10 +11,14 @@ Phases (each fails the script when its check fails):
      256x256x2000 movie with 192 neuron slots and ring radius 13, with
      median CUDA-event times of both and each kernel's bound; K1 also at
      edge shapes (K from 1 to 4000, mixed schedules, gate zeros, masks);
-     the banded bf16 ring products also against the f32 stencil; the
-     stencil also at the fit's own shapes (the 128x128 coarse grid,
-     radius 9, with and without the intercept), and torch.sparse.mm of
-     the ring matrix timed beside it as the library yardstick; the OASIS
+     the ring stencil K6 (both its bodies) and the banded bf16 ring
+     products K5 and K7 at the step's shapes and at edge shapes (widths
+     and heights off the tiles, T = 1, 7, 2001, a field of view narrower
+     than the ring, radii 1 to 16 and 6.5), the banded products also
+     against K6; K6 also at the fit's own shapes (the 128x128 coarse
+     grid, radius 9, with and without the intercept); torch.sparse.mm of
+     the ring matrix timed beside the ring kernels as the library
+     yardstick, each kernel's ratio to it and to its bound printed; the OASIS
      kernels K2 -> K3 -> K4 at both launch shapes of the fit (K = 64 and
      192) with their device times, and at edge cases (chunks of 18, 32,
      64 and 256, one trace, T = 2500, monotone traces, smin = 0, lam > 0),
@@ -107,6 +111,7 @@ RADIUS = 13                 # bench.py's ring radius at 256 x 256
 # CUDA cores, dense bf16 on the tensor cores, HBM3
 FP32_FLOPS, BF16_FLOPS, HBM_BYTES = 67e12, 989e12, 3.35e12
 HALS_TOL = 2e-5             # K1 against its plain version, times 1 + |x|
+SM_COUNT = torch.cuda.get_device_properties(DEV).multi_processor_count
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -399,6 +404,8 @@ def device_ms(fns: dict, reps: int, spin: int = 50_000_000) -> dict:
             if host_ms < s.elapsed_time(a):
                 break
             spin *= 2       # the host was still queueing when the spin ended
+            require(spin < 2 ** 36, f"{name}: the host waits for the card "
+                    f"inside a call, so its calls cannot be queued")
         out[name] = a.elapsed_time(b) / reps
     return out
 
@@ -570,12 +577,12 @@ def ring_csr(w, H: int, W: int, radius: int):
     ).coalesce().to_sparse_csr()
 
 
-def ring_library(w, w0, X, H: int, W: int, radius: int) -> float:
-    """The time of one torch.sparse.mm (cuSPARSE) of the ring matrix as a
-    CSR (d, d) tensor with the (d, T) movie: the ring apply without its
-    w0 add, a yardstick the port never calls. The matrix and the
-    transposed movie are built outside the timing; the product is checked
-    against K6's output less w0."""
+def ring_library(w, w0, X, H: int, W: int, radius: int):
+    """One torch.sparse.mm (cuSPARSE) of the ring matrix as a CSR (d, d)
+    tensor with the (d, T) movie: the ring apply without its w0 add, a
+    yardstick the port never calls. Builds the matrix and the transposed
+    movie, checks the product against K6's output less w0, and returns the
+    product as a callable to time."""
     T = X.shape[0]
     Wcsr = ring_csr(w, H, W, radius)
     Xd = X.reshape(T, H * W).T.contiguous()
@@ -584,108 +591,224 @@ def ring_library(w, w0, X, H: int, W: int, radius: int) -> float:
     e = (torch.sparse.mm(Wcsr, Xd) - ref).abs()
     require(bool((e <= 1e-4 * (1 + ref.abs())).all()),
             "torch.sparse.mm of the ring matrix disagrees with K6")
-    ms = cuda_ms(lambda: torch.sparse.mm(Wcsr, Xd), 5)
     print(f"phase 2: library torch.sparse.mm (CSR, {Wcsr.values().numel()} "
           f"nonzeros) of the ring matrix with the movie {H}x{W}x{T} "
-          f"radius={radius}, w0 add left out: {ms:.3f} ms, max_abs_err "
+          f"radius={radius}, w0 add left out: max_abs_err "
           f"{float(e.max()):.3e} against K6 less w0", flush=True)
-    return ms
+    return lambda: torch.sparse.mm(Wcsr, Xd)
+
+
+def ring_times(kernels: dict, library, reps=10) -> dict:
+    """Each ring kernel's device time (``ms``, by :func:`device_ms`: its
+    wrapper's launches back to back, the wrapper's device work such as K6's
+    weight transpose or K5's bf16 cast included, its host work not) and
+    the CUDA-event time of one wrapper call (``call_ms``, host work
+    included), and the library product's the same two ways."""
+    dev = device_ms(dict(kernels, library=library), reps)
+    return {name: dict(ms=dev[name], call_ms=cuda_ms(fn, reps),
+                       library_ms=dev["library"])
+            for name, fn in dict(kernels, library=library).items()}
+
+
+def ring_problem(T, H, W, radius, seed, uniform=False, intercept=True):
+    """A (T, H, W) movie and ring weights on the card: bench.py's uniform
+    weights 1/R without an intercept, or random weights about 1/R with a
+    random intercept (or none)."""
+    R = ring_kernels.ring_offsets(radius).shape[0]
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    X = torch.randn((T, H, W), generator=gen, device=DEV)
+    if uniform:
+        w = torch.full((H * W, R), 1.0 / R, device=DEV)
+    else:
+        w = 0.01 * torch.randn((H * W, R), generator=gen, device=DEV) + 1.0 / R
+    w0 = (torch.randn(H * W, generator=gen, device=DEV) if intercept
+          else torch.zeros(H * W, device=DEV))
+    return X, RingWeights(w=w, w0=w0)
+
+
+def stencil_case(what, X, wts, H, W, radius, apply=None):
+    """K6 (through ``apply``, by default its wrapper) against its plain
+    version, within 1e-5 (1 + |x|). Returns the error, whether the two agree
+    bit for bit, and the body the wrapper's picker took."""
+    T = X.shape[0]
+    plan = ring_kernels._stencil_plan(T, H, W, radius, SM_COUNT)
+    ref = ring_kernels.apply_ring_stencil_reference(wts.w, wts.w0, X, H, W,
+                                                    radius)
+    out = (apply or (lambda: ring_kernels.apply_ring_stencil(
+        wts.w, wts.w0, X, H, W, radius)))()
+    e = (out - ref).abs()
+    ok = bool((e <= 1e-5 * (1 + ref.abs())).all()
+              and torch.isfinite(out).all())
+    res = dict(case=what, body=plan.body, max_abs_err=float(e.max()),
+               bit_identical=bool(torch.equal(out, ref)))
+    print(f"phase 2: ring_stencil {what} {H}x{W}x{T} radius={radius} "
+          f"R={wts.w.shape[1]} body={plan.body} frames/thread="
+          f"{plan.frames_per_thread} TT={plan.TT} smem="
+          f"{plan.smem_bytes}: max_abs_err {res['max_abs_err']:.3e} (tol "
+          f"1e-5*(1+|x|)), bit-identical {res['bit_identical']}", flush=True)
+    require(ok, f"ring_stencil ({what}) disagrees with its plain version")
+    return res
+
+
+BANDED = (("ring_banded_flat", ring_kernels.apply_ring_mxu_flat,
+           "apply_ring_mxu_flat_reference"),
+          ("ring_banded_htw", ring_kernels.apply_ring_mxu,
+           "apply_ring_mxu_reference"))
+
+
+def banded_cases(what, X, wts, H, W, radius):
+    """K5 and K7 on one problem, each within 1e-5 of the output's scale of
+    its plain version and within 2e-2 of it of K6 (bf16 operands). Returns
+    each kernel's error against its plain version."""
+    ref6 = ring_kernels.apply_ring_stencil(wts.w, wts.w0, X, H, W, radius)
+    scale = float(ref6.abs().max())
+    bands = ring_kernels.ring_dense_bands(wts, H, W, radius)
+    errs = {}
+    for name, kernel, plain in BANDED:
+        out = kernel(bands, wts.w0, X, H, W, radius)
+        ref = getattr(ring_kernels, plain)(bands, wts.w0, X, H, W, radius)
+        e = float((out - ref).abs().max())
+        e32 = float((out - ref6).abs().max())
+        errs[name] = e
+        print(f"phase 2: {name} {what} {H}x{W}x{X.shape[0]} radius={radius}:"
+              f" max_abs_err {e:.3e} against its plain version (tol "
+              f"1e-5*scale = {1e-5 * scale:.3e}), {e32:.3e} against K6 (tol "
+              f"2e-2*scale = {2e-2 * scale:.3e})", flush=True)
+        require(e <= 1e-5 * scale and bool(torch.isfinite(out).all()),
+                f"{name} ({what}) disagrees with its plain version")
+        require(e32 <= 2e-2 * scale, f"{name} ({what}) is off K6 by more "
+                f"than bf16 rounding")
+    return errs
+
+
+def ring_bounds(X, w, w0, R):
+    """The least times of the ring apply. K6 does a multiply and an add per
+    tap and an add of w0 in FP32, and moves X, w, w0 and the output. K5/K7
+    compute the same function: they count the same operations at the bf16
+    rate, and move the band entries that hold a tap (H*W*R bf16: the only
+    nonzeros of the bands, whatever blocks a kernel reads), w0, the bf16
+    movie and the f32 output."""
+    T, H, W = X.shape
+    flops = (2.0 * R + 1) * T * H * W
+    return {"ring_stencil": bound(flops, nbytes(X, X, w, w0)),
+            "banded": bound(flops, H * W * R * 2 + nbytes(w0) + X.numel() * 2
+                            + X.numel() * 4, BF16_FLOPS)}
+
+
+def ratios(res: dict) -> str:
+    return (f"{res['ms'] / res['library_ms']:.3f}x the library, "
+            f"{res['ms'] / res['bound_ms']:.2f}x the bound")
 
 
 def phase2_ring(H=256, W=256, T=2000):
     """K6, K5 and K7 at the step's shapes, on bench.py's uniform ring
-    weights (1/R, no intercept) and on random weights and intercepts."""
+    weights (1/R, no intercept) and on random weights and intercepts, timed
+    beside torch.sparse.mm of the ring matrix; then at edge shapes, each
+    held to its plain version: K6's shared-memory body (a radius past the
+    register cap, a non-integer radius, W % 4 != 0), widths and heights
+    that are not multiples of the tile, T = 1, 7 and 2001, a field of view
+    narrower than the ring (W <= 2 mr); K5 and K7 at W = 200, H = 3, T not a
+    multiple of the frame tile, radii 9 and 13."""
     R = ring_kernels.ring_offsets(RADIUS).shape[0]
-    gen = torch.Generator(device=DEV).manual_seed(1)
-    X = torch.randn((T, H, W), generator=gen, device=DEV)
-    weight_sets = {
-        "uniform": RingWeights(w=torch.full((H * W, R), 1.0 / R, device=DEV),
-                               w0=torch.zeros(H * W, device=DEV)),
-        "random": RingWeights(
-            w=0.01 * torch.randn((H * W, R), generator=gen, device=DEV)
-            + 1.0 / R,
-            w0=torch.randn(H * W, generator=gen, device=DEV)),
-    }
-    banded = (("ring_banded_flat", ring_kernels.apply_ring_mxu_flat,
-               "apply_ring_mxu_flat_reference"),
-              ("ring_banded_htw", ring_kernels.apply_ring_mxu,
-               "apply_ring_mxu_reference"))
-    errs = {"ring_stencil": 0.0, "ring_banded_flat": 0.0,
-            "ring_banded_htw": 0.0}
-    for wname, wts in weight_sets.items():
-        ref6 = ring_kernels.apply_ring_stencil_reference(wts.w, wts.w0, X, H,
-                                                         W, RADIUS)
-        out6 = ring_kernels.apply_ring_stencil(wts.w, wts.w0, X, H, W, RADIUS)
-        e = (out6 - ref6).abs()
-        ok = bool((e <= 1e-5 * (1 + ref6.abs())).all())
-        errs["ring_stencil"] = max(errs["ring_stencil"], float(e.max()))
-        print(f"phase 2: ring_stencil {wname} weights {H}x{W}x{T} "
-              f"radius={RADIUS} R={R}: max_abs_err {float(e.max()):.3e} "
-              f"(tol 1e-5*(1+|x|))", flush=True)
-        require(ok, f"ring_stencil ({wname} weights) disagrees with its "
-                f"plain version")
-        scale = float(ref6.abs().max())
-        bands = ring_kernels.ring_dense_bands(wts, H, W, RADIUS)
-        for name, kernel, plain in banded:
-            out = kernel(bands, wts.w0, X, H, W, RADIUS)
-            ref = getattr(ring_kernels, plain)(bands, wts.w0, X, H, W,
-                                               RADIUS)
-            e = float((out - ref).abs().max())
-            e32 = float((out - ref6).abs().max())
-            errs[name] = max(errs[name], e)
-            print(f"phase 2: {name} {wname} weights: max_abs_err {e:.3e} "
-                  f"against its plain version (tol 1e-5*scale = "
-                  f"{1e-5 * scale:.3e}), {e32:.3e} against the f32 stencil "
-                  f"(tol 2e-2*scale = {2e-2 * scale:.3e})", flush=True)
-            require(e <= 1e-5 * scale, f"{name} ({wname} weights) disagrees "
-                    f"with its plain version")
-            require(e32 <= 2e-2 * scale, f"{name} ({wname} weights) is off "
-                    f"the f32 stencil by more than bf16 rounding")
-            del out, ref
-        del ref6, out6
+    cases, errs = [], {"ring_banded_flat": 0.0, "ring_banded_htw": 0.0}
+    for uniform in (True, False):
+        X, wts = ring_problem(T, H, W, RADIUS, seed=1, uniform=uniform,
+                              intercept=not uniform)
+        what = "uniform weights" if uniform else "random weights"
+        cases.append(stencil_case(what, X, wts, H, W, RADIUS))
+        for k, e in banded_cases(what, X, wts, H, W, RADIUS).items():
+            errs[k] = max(errs[k], e)
 
-    # times on the random weights (bands kept from the last set)
+    # times on the random weights
     w, w0 = wts.w, wts.w0
+    bands = ring_kernels.ring_dense_bands(wts, H, W, RADIUS)
+    Xb = X.reshape(T, H * W).to(torch.bfloat16).contiguous()
     timed = [("ring_stencil",
               lambda: ring_kernels.apply_ring_stencil(w, w0, X, H, W, RADIUS),
               lambda: ring_kernels.apply_ring_stencil_reference(
                   w, w0, X, H, W, RADIUS))]
-    for name, kernel, plain in banded:
+    for name, kernel, plain in BANDED:
         timed.append((name,
                       lambda k=kernel: k(bands, w0, X, H, W, RADIUS),
                       lambda p=plain: getattr(ring_kernels, p)(
                           bands, w0, X, H, W, RADIUS)))
-    # bounds: K6 does a multiply-add per tap and an add of w0 in FP32 and
-    # moves X, w, w0 and the output; K5/K7 compute the same function, whose
-    # R taps per pixel are the band's only nonzeros (its other products are
-    # with zeros, which the function does not need), so they count the
-    # stencil's operations at the bf16 rate and move the bands, w0, the
-    # bf16 movie and the f32 output
-    bounds = {
-        "ring_stencil": bound((2.0 * R + 1) * T * H * W,
-                              nbytes(X, X, w, w0)),
-        "ring_banded_flat": bound((2.0 * R + 1) * T * H * W,
-                                  nbytes(bands, w0, X) + X.numel() * 2,
-                                  BF16_FLOPS)}
-    bounds["ring_banded_htw"] = bounds["ring_banded_flat"]
+    bounds = ring_bounds(X, w, w0, R)
+    times = ring_times(
+        dict({name: kernel for name, kernel, _ in timed},
+             # K5's launch alone, on the bf16 movie made beforehand
+             ring_banded_flat_launch=lambda: ring_kernels._banded(
+                 "ring_banded_flat", Xb, bands, w0, T, H, W, RADIUS)),
+        ring_library(w, w0, X, H, W, RADIUS))
+    lib = times["library"]
+    print(f"phase 2: library torch.sparse.mm {H}x{W}x{T} radius={RADIUS}: "
+          f"{lib['ms']:.3f} ms (call {lib['call_ms']:.3f})", flush=True)
     results = {}
     for name, kernel, plain in timed:
-        ms, pms = cuda_ms(kernel, 5), cuda_ms(plain, 2)
-        bms, by = bounds[name]
-        results[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=pms,
-                             bound_ms=bms, bound_by=by, library_ms=None)
+        bms, by = bounds["ring_stencil" if name == "ring_stencil"
+                         else "banded"]
+        results[name] = dict(times[name], plain_ms=cuda_ms(plain, 2),
+                             bound_ms=bms, bound_by=by)
+        res = results[name]
         print(f"phase 2: {name} {H}x{W}x{T} radius={RADIUS}: kernel "
-              f"{ms:.3f} ms, bound {bms:.3f} ms ({by}), plain {pms:.3f} ms",
-              flush=True)
-    # one PyTorch call of the same function (without w0) for all three
-    lib_ms = ring_library(w, w0, X, H, W, RADIUS)
-    for res in results.values():
-        res["library_ms"] = lib_ms
+              f"{res['ms']:.3f} ms (call {res['call_ms']:.3f}), bound "
+              f"{bms:.3f} ms ({by}), plain {res['plain_ms']:.3f} ms, library "
+              f"{res['library_ms']:.3f} ms: {ratios(res)}", flush=True)
+    launch = times["ring_banded_flat_launch"]
+    results["ring_banded_flat"]["launch_ms"] = launch["ms"]
+    print(f"phase 2: ring_banded_flat launch alone (the bf16 movie made "
+          f"beforehand): {launch['ms']:.3f} ms (call {launch['call_ms']:.3f})",
+          flush=True)
     ms_bands = cuda_ms(lambda: ring_kernels.ring_dense_bands(
-        weight_sets["random"], H, W, RADIUS), 3)
+        wts, H, W, RADIUS), 3)
     print(f"phase 2: ring_dense_bands (plain PyTorch scatter, "
           f"{bands.numel() * 2 / 1e6:.0f} MB of bf16): {ms_bands:.3f} ms",
           flush=True)
+    del X, Xb, bands, wts, w, w0
+
+    # K6's shared-memory body at the step's shape, radius 15 (R = 96, past
+    # the register cap)
+    X, wts = ring_problem(T, H, W, 15, seed=3)
+    cases.append(stencil_case("past the register cap", X, wts, H, W, 15))
+    ms = device_ms({"shared": lambda: ring_kernels.apply_ring_stencil(
+        wts.w, wts.w0, X, H, W, 15)}, 5)["shared"]
+    bms, by = ring_bounds(X, wts.w, wts.w0, wts.w.shape[1])["ring_stencil"]
+    shared_body = dict(shape=f"T={T} H={H} W={W} radius=15", ms=ms,
+                       bound_ms=bms, bound_by=by)
+    print(f"phase 2: ring_stencil shared-memory body {H}x{W}x{T} radius=15: "
+          f"kernel {ms:.3f} ms, bound {bms:.3f} ms ({by})", flush=True)
+    del X, wts
+
+    for i, (t, h, w_, rad, kinds) in enumerate((
+            (300, 100, 200, 13, "tile"),       # W, H not multiples of 8 x 32
+            (60, 37, 131, 9, "tile"),          # W % 4 != 0: shared body
+            (1, 64, 96, 13, "T"), (7, 64, 96, 13, "T"),
+            (2001, 64, 96, 13, "T"),
+            (20, 24, 24, 13, "fov"),           # W <= 2 mr
+            (20, 20, 18, 13, "fov"),           # and W % 4 != 0
+            (9, 16, 32, 1, "radius"), (30, 40, 64, 6.5, "radius"),
+            (30, 40, 64, 16, "radius"))):
+        for uniform, intercept in ((True, False), (False, True),
+                                   (False, False)):
+            X, wts = ring_problem(t, h, w_, rad, seed=10 + i,
+                                  uniform=uniform, intercept=intercept)
+            cases.append(stencil_case(
+                f"edge ({kinds}; {'uniform' if uniform else 'random'}, "
+                f"w0 {intercept})", X, wts, h, w_, rad))
+    for i, (t, h, w_, rad) in enumerate(((300, 40, 200, 13),
+                                         (300, 40, 200, 9),
+                                         (257, 3, 64, 9), (257, 3, 64, 13),
+                                         (100, 20, 8, 13))):
+        X, wts = ring_problem(t, h, w_, rad, seed=30 + i)
+        for k, e in banded_cases("edge", X, wts, h, w_, rad).items():
+            errs[k] = max(errs[k], e)
+    require({c["body"] for c in cases} == {"registers", "shared"},
+            "the edge cases did not run both bodies of ring_stencil")
+    results["ring_stencil"].update(
+        max_abs_err=max(c["max_abs_err"] for c in cases),
+        bit_identical=all(c["bit_identical"] for c in cases),
+        shared_body=shared_body, cases=len(cases))
+    for name in errs:
+        results[name]["max_abs_err"] = errs[name]
     return results
 
 
@@ -693,39 +816,36 @@ def phase2_ring_fit_grid(H=128, W=128, T=2000, radius=9):
     """K6 at the shapes CNMFE.fit gives it on the 256x256x2000 movie:
     preset_1p's ssub=2 coarse grid (radius 18 / 2), through the dispatching
     apply_ring with the intercept (reconstruct_ring_background) and without
-    it (the outlier clamp of fit_ring_model)."""
-    R = ring_kernels.ring_offsets(radius).shape[0]
-    gen = torch.Generator(device=DEV).manual_seed(2)
-    X = torch.randn((T, H, W), generator=gen, device=DEV)
-    wts = RingWeights(
-        w=0.01 * torch.randn((H * W, R), generator=gen, device=DEV) + 1.0 / R,
-        w0=torch.randn(H * W, generator=gen, device=DEV))
-    err = 0.0
+    it (the outlier clamp of fit_ring_model), timed beside torch.sparse.mm
+    of the ring matrix."""
+    X, wts = ring_problem(T, H, W, radius, seed=2)
+    R = wts.w.shape[1]
+    cases = []
     for intercept in (True, False):
-        w0 = wts.w0 if intercept else torch.zeros_like(wts.w0)
-        ref = ring_kernels.apply_ring_stencil_reference(wts.w, w0, X, H, W,
-                                                        radius)
-        out = apply_ring(wts, X, H, W, radius, include_intercept=intercept)
-        e = (out - ref).abs()
-        err = max(err, float(e.max()))
-        print(f"phase 2: ring_stencil fit grid {H}x{W}x{T} radius={radius} "
-              f"R={R} intercept={intercept}: max_abs_err {float(e.max()):.3e}"
-              f" (tol 1e-5*(1+|x|))", flush=True)
-        require(bool((e <= 1e-5 * (1 + ref.abs())).all()),
-                f"ring_stencil on the fit grid (intercept={intercept}) "
-                f"disagrees with its plain version")
-    ms = cuda_ms(lambda: ring_kernels.apply_ring_stencil(
-        wts.w, wts.w0, X, H, W, radius), 5)
+        w = RingWeights(w=wts.w, w0=wts.w0 if intercept
+                        else torch.zeros_like(wts.w0))
+        cases.append(stencil_case(
+            f"fit grid, intercept={intercept}", X, w, H, W, radius,
+            apply=lambda: apply_ring(wts, X, H, W, radius,
+                                     include_intercept=intercept)))
+    times = ring_times(
+        {"ring_stencil": lambda: ring_kernels.apply_ring_stencil(
+            wts.w, wts.w0, X, H, W, radius)},
+        ring_library(wts.w, wts.w0, X, H, W, radius), reps=20)
     pms = cuda_ms(lambda: ring_kernels.apply_ring_stencil_reference(
         wts.w, wts.w0, X, H, W, radius), 2)
-    bms, by = bound((2.0 * R + 1) * T * H * W, nbytes(X, X, wts.w, wts.w0))
+    bms, by = ring_bounds(X, wts.w, wts.w0, R)["ring_stencil"]
+    res = dict(times["ring_stencil"],
+               shape=f"T={T} H={H} W={W} radius={radius}",
+               max_abs_err=max(c["max_abs_err"] for c in cases),
+               bit_identical=all(c["bit_identical"] for c in cases),
+               plain_ms=pms, bound_ms=bms, bound_by=by)
     print(f"phase 2: ring_stencil fit grid {H}x{W}x{T} radius={radius}: "
-          f"kernel {ms:.3f} ms, bound {bms:.3f} ms ({by}), plain {pms:.3f} ms",
-          flush=True)
-    lib_ms = ring_library(wts.w, wts.w0, X, H, W, radius)
-    return {"shape": f"T={T} H={H} W={W} radius={radius}",
-            "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bms,
-            "bound_by": by, "library_ms": lib_ms}
+          f"kernel {res['ms']:.3f} ms (call {res['call_ms']:.3f}), bound "
+          f"{bms:.3f} ms ({by}), plain {pms:.3f} ms, library "
+          f"{res['library_ms']:.3f} ms (call "
+          f"{times['library']['call_ms']:.3f}): {ratios(res)}", flush=True)
+    return res
 
 
 # ------------------------------------------------------------------ #
@@ -939,6 +1059,7 @@ def main():
     fit_grid = phase2_ring_fit_grid()
     results["ring_stencil"]["max_abs_err"] = max(
         results["ring_stencil"]["max_abs_err"], fit_grid["max_abs_err"])
+    results["ring_stencil"]["bit_identical"] &= fit_grid["bit_identical"]
     phase3_consistency()
     per_path = {"fit": phase4_full()}
     per_path.update(phase5_step())

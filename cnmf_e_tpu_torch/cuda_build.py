@@ -54,11 +54,14 @@ _SIGNATURES = {
     "oasis_pool_merge_launch": [_P] * 7 + [_I] * 3 + [_P] * 5 + [_P],
     # v, w, ts, ln, n, g, K, P, T, c, s, stream
     "oasis_reconstruct_launch": [_P] * 6 + [_I] * 3 + [_P] * 2 + [_P],
+    # K6's two bodies, both counted as ring_stencil:
+    # X, wt, w0, out, T, H, W, radius, TT, stream
+    "ring_stencil_regs_launch": [_P] * 4 + [_I] * 5 + [_P],
     # X, wt, w0, dy, dx, out, T, H, W, R, mr, HT, WT, TT, stream
-    "ring_stencil_launch": [_P] * 6 + [_I] * 8 + [_P],
-    # Xp, bands, w0, out, T, H, W, D, stream
-    "ring_banded_flat_launch": [_P] * 4 + [_I] * 4 + [_P],
-    "ring_banded_htw_launch": [_P] * 4 + [_I] * 4 + [_P],
+    "ring_stencil_smem_launch": [_P] * 6 + [_I] * 8 + [_P],
+    # X, bands, w0, kstart, koff, out, T, H, W, D, stream
+    "ring_banded_flat_launch": [_P] * 6 + [_I] * 4 + [_P],
+    "ring_banded_htw_launch": [_P] * 6 + [_I] * 4 + [_P],
 }
 
 
@@ -140,17 +143,17 @@ def load_library() -> ctypes.CDLL:
         return lib
 
 
-def launch(kernel: str, device, *args) -> None:
-    """Call ``<kernel>_launch`` on ``device``'s current stream; raise on a
-    CUDA error; count the launch. Tensor arguments pass as their data
-    pointers."""
+def launch(kernel: str, device, *args, entry: str | None = None) -> None:
+    """Call ``entry`` (by default ``<kernel>_launch``) on ``device``'s
+    current stream; raise on a CUDA error; count the launch as ``kernel``'s.
+    Tensor arguments pass as their data pointers."""
     import torch
     lib = load_library()
     args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
             for a in args]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, f"{kernel}_launch")(*args, stream)
+        err = getattr(lib, entry or f"{kernel}_launch")(*args, stream)
     if err != 0:
         msg = lib.cnmfe_error_string(err).decode()
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err} "

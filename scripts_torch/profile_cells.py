@@ -95,12 +95,13 @@ def main():
     busy_ms = busy_us / 1e3
     table = prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=25)
-    # the port's kernels, by their names in csrc/ (K5 and K7 share one)
+    # the port's kernels, by their names in csrc/ (K6's two bodies both
+    # match ring_stencil_; K5 and K7 share one)
     ours = {k: [0, 0.0] for k in ("hals_sweeps_kernel",
                                   "oasis_chunk_pools_kernel",
                                   "oasis_pool_merge_kernel",
                                   "oasis_reconstruct_kernel",
-                                  "ring_stencil_kernel",
+                                  "ring_stencil_",
                                   "ring_banded_kernel")}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:

@@ -11,6 +11,9 @@ bit for bit. The dispatching ``ops.ring.apply_ring`` and
 forms.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -166,9 +169,163 @@ def test_stencil_tile_fits_shared_memory():
 def test_banded_kernels_refuse_unaligned_width():
     """The banded kernels load 16-byte rows: W % 8 != 0 raises before any
     launch (the plain versions take any W)."""
-    H, W, T, D = 4, 12, 3, 5
+    H, W, T, radius = 4, 12, 3, 2
+    D = 2 * radius + 1
     Xp = torch.zeros((T, (H + D - 1) * W), dtype=torch.bfloat16)
     bands = torch.zeros((H, D * W, W), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="W % 8"):
         rk._banded("ring_banded_flat", Xp, bands, torch.zeros(H * W), T, H,
-                   W, D)
+                   W, radius)
+
+
+# --------------------------------------------------------------------- #
+# the geometry of the CUDA kernels, which the CPU reaches
+# --------------------------------------------------------------------- #
+_CSRC = Path(rk.__file__).resolve().parents[1] / "csrc"
+
+
+def _constexpr(source, name):
+    m = re.search(rf"constexpr int {name} = (\d+);",
+                  (_CSRC / source).read_text())
+    assert m, f"{source} has no constexpr int {name}"
+    return int(m.group(1))
+
+
+def test_kernel_constants_match_the_sources():
+    """The Python geometry and the CUDA sources use the same tiles."""
+    st = "ring_stencil.cu"
+    assert rk._REGS_TILE == (_constexpr(st, "kHT"), _constexpr(st, "kWT"))
+    assert rk._REGS_STAGES == _constexpr(st, "kStages")
+    assert rk._REGS_WIDE_TAPS == _constexpr(st, "kWideTaps")
+    assert rk._REGS_FRAMES == (_constexpr(st, "kFNarrow"),
+                               _constexpr(st, "kFWide"))
+    assert rk._REGS_MAX_RADIUS == _constexpr(st, "kMaxRegRadius")
+    assert (rk._BAND_TN, rk._BAND_KB) == tuple(
+        _constexpr("ring_banded.cu", n) for n in ("TN", "KB"))
+
+
+@pytest.mark.parametrize("radius", range(1, 15))
+def test_register_body_taps_follow_ring_offsets(radius):
+    """The register body compiles each ring's taps from the integer rule
+    radius^2 <= dy^2 + dx^2 < (radius + 1)^2, dy outer and dx inner, both
+    ascending; the weights come in ring_offsets' order, so the two must be
+    the same list."""
+    r = radius + 1
+    taps = [(y, x) for y in range(-r, r + 1) for x in range(-r, r + 1)
+            if radius ** 2 <= y * y + x * x < (radius + 1) ** 2]
+    np.testing.assert_array_equal(np.array(taps), rk.ring_offsets(radius))
+
+
+@pytest.mark.parametrize("T,H,W,radius,body,frames", [
+    (2000, 256, 256, 13, "registers", 8),     # the step
+    (2000, 128, 128, 9, "registers", 4),      # the fit's coarse grid
+    (2000, 256, 256, 14, "registers", 8),     # the widest compiled ring
+    (2000, 256, 256, 15, "shared", 1),        # past the register cap
+    (300, 100, 200, 13, "registers", 8),      # W, H off the 8 x 32 tile
+    (60, 37, 131, 9, "shared", 1),            # W % 4 != 0
+    (7, 64, 96, 13, "registers", 8),
+    (1, 24, 24, 13, "registers", 8),          # W <= 2 mr
+    (30, 40, 64, 6.5, "shared", 1),           # not an integer radius
+    (9, 16, 32, 1, "registers", 4),
+    (30, 512, 512, 60, "shared", 1),
+])
+def test_stencil_plan_picks_body_and_fits_shared_memory(T, H, W, radius,
+                                                        body, frames):
+    """K6's picker: the body each shape takes, the frames a thread sums,
+    frames a CTA that cover T in whole groups, and shared memory within
+    what a Hopper CTA can have."""
+    plan = rk._stencil_plan(T, H, W, radius, 132)
+    assert (plan.body, plan.frames_per_thread) == (body, frames)
+    assert plan.smem_bytes <= rk._SMEM_CAP
+    if body == "registers":
+        R = rk.ring_offsets(radius).shape[0]
+        assert frames == (4 if R <= rk._REGS_WIDE_TAPS else 8)
+        assert plan.TT % frames == 0 and plan.TT >= frames
+        assert rk._cdiv(T, plan.TT) * plan.TT >= T
+        tiles = rk._cdiv(H, 8) * rk._cdiv(W, 32) * rk._cdiv(T, plan.TT)
+        assert tiles <= max(2 * 132, rk._cdiv(H, 8) * rk._cdiv(W, 32))
+    else:
+        assert (plan.HT, plan.WT) == rk._stencil_tile(
+            H, W, rk.ring_offsets(radius).shape[0],
+            int(np.abs(rk.ring_offsets(radius)).max()))
+
+
+def test_register_cap_is_the_shared_memory_of_a_cta():
+    """Radius 14 is the widest ring whose register-body halos fit a CTA
+    (3 stages of 8 frames); radius 15's would not."""
+    HT, WT = rk._REGS_TILE
+    frames = rk._REGS_FRAMES[1]
+
+    def halos(rad):
+        return rk._REGS_STAGES * (frames * (HT + 2 * rad)
+                                  * (WT + 2 * rk._cdiv(rad, 4) * 4) * 4 + 8)
+    assert halos(rk._REGS_MAX_RADIUS) <= rk._SMEM_CAP
+    assert halos(rk._REGS_MAX_RADIUS + 1) > rk._SMEM_CAP
+
+
+_BLOCK_CASES = [(4, 256, 13), (6, 128, 9), (5, 200, 13), (3, 200, 9),
+                (4, 24, 4), (3, 40, 9), (20, 8, 13), (7, 72, 3)]
+
+
+@pytest.mark.parametrize("H,W,radius", _BLOCK_CASES)
+def test_banded_k_blocks_cover_every_tap(H, W, radius):
+    """Every nonzero of ring_dense_bands lies in a block that K5's list
+    holds for its column tile; the lists are ascending, unique, aligned and
+    inside the band."""
+    R = rk.ring_offsets(radius).shape[0]
+    rng = np.random.default_rng(radius * 100 + W)
+    w = (1.0 + rng.random((H * W, R))).astype(np.float32)
+    bands = rk.ring_dense_bands(RingWeights(w=torch.tensor(w),
+                                            w0=torch.zeros(H * W)),
+                                H, W, radius)
+    kstart, koff = rk.banded_k_blocks(radius, W)
+    tn, kb = rk._BAND_TN, rk._BAND_KB
+    D = 2 * int(np.abs(rk.ring_offsets(radius)).max()) + 1
+    assert len(koff) == rk._cdiv(W, tn) + 1 and koff[0] == 0
+    listed = set()
+    for j in range(len(koff) - 1):
+        blocks = kstart[koff[j]:koff[j + 1]]
+        assert np.all(np.diff(blocks) > 0) and np.all(blocks % kb == 0)
+        assert blocks.min() >= 0 and blocks.max() < D * W
+        listed |= {(b // kb, j) for b in blocks}
+    _, k, n = np.nonzero(bands.float().numpy())
+    assert len(k) > 0
+    assert {(kk // kb, nn // tn) for kk, nn in zip(k, n)} <= listed
+    # at the step's shape the list skips most of the band
+    if (W, radius) == (256, 13):
+        assert len(kstart) * kb * tn < 0.4 * D * W * W
+
+
+@pytest.mark.parametrize("H,W,radius", _BLOCK_CASES[:6])
+def test_product_over_listed_blocks_equals_reference(H, W, radius):
+    """K5's arithmetic on the CPU: per column tile, the product over the
+    listed blocks alone, A read from the unpadded movie with rows outside
+    [0, H) as zeros, as the kernel reads it, equals the plain version to
+    1e-6 of the output's scale."""
+    T = 9
+    X, w, w0 = _problem(7, T, H, W, radius, bias=0.05)
+    _, wt = _weights(w, w0)
+    bands = rk.ring_dense_bands(wt, H, W, radius).float()
+    Xb = rk._bf16_f32(torch.tensor(X)).reshape(T, H * W)
+    mr = int(np.abs(rk.ring_offsets(radius)).max())
+    DW = (2 * mr + 1) * W
+    kstart, koff = rk.banded_k_blocks(radius, W)
+    tn, kb = rk._BAND_TN, rk._BAND_KB
+    out = torch.zeros((T, H, W))
+    for h in range(H):
+        for j in range(len(koff) - 1):
+            n0, n1 = j * tn, min(j * tn + tn, W)
+            for k0 in kstart[koff[j]:koff[j + 1]]:
+                ks = torch.arange(int(k0), min(int(k0) + kb, DW))
+                a = (h - mr) * W + ks
+                inside = (a >= 0) & (a < H * W)
+                A = torch.zeros((T, len(ks)))
+                A[:, inside] = Xb[:, a[inside]]
+                out[:, h, n0:n1] += A @ bands[h, ks, n0:n1]
+    out += torch.tensor(w0).reshape(1, H, W)
+    want = rk.apply_ring_mxu_flat_reference(
+        rk.ring_dense_bands(wt, H, W, radius), torch.tensor(w0),
+        torch.tensor(X), H, W, radius)
+    scale = float(want.abs().max())
+    np.testing.assert_allclose(out.numpy() / scale, want.numpy() / scale,
+                               atol=1e-6)
