@@ -56,8 +56,9 @@ class DeconvParams:
     # divide-and-conquer OASIS time-chunk size; 0 = exact sequential event
     # loop. The fast path is exact for smin == 0 (PAVA confluence) and can
     # deviate at isolated samples for smin > 0 (trace corr vs exact stays
-    # > 0.999 in all measured regimes). On the card the pass-1 kernel holds
-    # chunks of at most 605 samples (ops/oasis_kernels.py::K2_MAX_L)
+    # > 0.999 in all measured regimes). Any chunk runs on the card: pass 1
+    # keeps its stacks in shared memory up to 605 samples and in a global
+    # scratch past that (ops/oasis_kernels.py::K2_SMEM_MAX_L)
     fast_chunk: int = 128
 
 

@@ -9,7 +9,9 @@ named by a hash of the sources and flags, then loaded with ``ctypes``.
 A failed build raises; nothing falls back to another implementation.
 
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made; each
-wrapper adds one right after its launch succeeds.
+wrapper adds one right after its launch succeeds (the OASIS solve entry,
+which launches three kernels, one to each). ``ENTRY_CALLS`` counts the
+calls of each C entry point.
 """
 
 from __future__ import annotations
@@ -37,6 +39,8 @@ KERNELS = ("hals_sweeps", "oasis_chunk_pools", "oasis_pool_merge",
            "oasis_reconstruct", "ring_stencil", "ring_banded_flat",
            "ring_banded_htw")
 LAUNCHES = {name: 0 for name in KERNELS}
+# calls of each C entry point, beside the per-kernel counts
+ENTRY_CALLS: dict = {}
 
 _lock = threading.Lock()
 _lib = None
@@ -48,12 +52,16 @@ _SIGNATURES = {
     # U, V, X, out, mask, gate, starts, ends, free, n_steps, K, d, n_iter,
     # relu, B, TD, KC, stream
     "hals_sweeps_launch": [_P] * 10 + [_I] * 7 + [_P],
-    # vinit, g, smin, K, nc, L, v, w, ts, ln, n, stream
-    "oasis_chunk_pools_launch": [_P] * 3 + [_I] * 3 + [_P] * 5 + [_P],
+    # vinit, g, smin, K, nc, L, scratch, v, w, ts, ln, n, stream
+    "oasis_chunk_pools_launch": [_P] * 3 + [_I] * 3 + [_P] * 6 + [_P],
     # v0, w0, ts0, l0, n_in, g, smin, K, nc, L, v, w, ts, ln, n, stream
     "oasis_pool_merge_launch": [_P] * 7 + [_I] * 3 + [_P] * 5 + [_P],
-    # v, w, ts, ln, n, g, K, P, T, c, s, stream
-    "oasis_reconstruct_launch": [_P] * 6 + [_I] * 3 + [_P] * 2 + [_P],
+    # v, w, ts, n, g, K, P, T, c, s, stream
+    "oasis_reconstruct_launch": [_P] * 5 + [_I] * 3 + [_P] * 2 + [_P],
+    # y, g, lam, smin, K, T, L, workspace, c, s, stream
+    "oasis_solve_launch": [_P] * 4 + [_I] * 3 + [_P] * 3 + [_P],
+    # K, T, L -> bytes
+    "oasis_solve_workspace": [_I] * 3,
     # K6's two bodies, both counted as ring_stencil:
     # X, wt, w0, out, T, H, W, radius, TT, stream
     "ring_stencil_regs_launch": [_P] * 4 + [_I] * 5 + [_P],
@@ -63,11 +71,13 @@ _SIGNATURES = {
     "ring_banded_flat_launch": [_P] * 6 + [_I] * 4 + [_P],
     "ring_banded_htw_launch": [_P] * 6 + [_I] * 4 + [_P],
 }
+_RESTYPES = {"oasis_solve_workspace": ctypes.c_longlong}
 
 
 def reset_launch_counts() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+    ENTRY_CALLS.clear()
 
 
 def _nvcc() -> str:
@@ -136,29 +146,33 @@ def load_library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         lib.cnmfe_error_string.argtypes = [ctypes.c_int]
         lib.cnmfe_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
 
 
-def launch(kernel: str, device, *args, entry: str | None = None) -> None:
+def launch(kernel: str | tuple, device, *args,
+           entry: str | None = None) -> None:
     """Call ``entry`` (by default ``<kernel>_launch``) on ``device``'s
-    current stream; raise on a CUDA error; count the launch as ``kernel``'s.
-    Tensor arguments pass as their data pointers."""
+    current stream; raise on a CUDA error; count one launch of ``kernel``,
+    or of each kernel of a tuple that ``entry`` launches. Tensor arguments
+    pass as their data pointers."""
     import torch
     lib = load_library()
+    entry = entry or f"{kernel}_launch"
     args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
             for a in args]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, entry or f"{kernel}_launch")(*args, stream)
+        err = getattr(lib, entry)(*args, stream)
     if err != 0:
         msg = lib.cnmfe_error_string(err).decode()
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {err} "
-                           f"({msg})")
-    LAUNCHES[kernel] += 1
+        raise RuntimeError(f"{entry} failed: CUDA error {err} ({msg})")
+    for name in (kernel,) if isinstance(kernel, str) else kernel:
+        LAUNCHES[name] += 1
+    ENTRY_CALLS[entry] = ENTRY_CALLS.get(entry, 0) + 1
 
 
 def check_cuda(*tensors, dtypes) -> None:

@@ -26,8 +26,6 @@ from cnmf_e_tpu_torch.models.spatial import update_spatial
 from cnmf_e_tpu_torch.models.state import CNMFEState, compact
 from cnmf_e_tpu_torch.models.temporal import update_temporal
 from cnmf_e_tpu_torch.ops.noise import noise_psd_frames
-from cnmf_e_tpu_torch.ops.oasis import chunk_length
-from cnmf_e_tpu_torch.ops.oasis_kernels import check_chunk
 
 
 def check_ported(params: CNMFEParams) -> None:
@@ -57,8 +55,6 @@ class CNMFE:
                  device="cuda"):
         self.params = params or CNMFEParams.preset_1p()
         self.device = torch.device(device)
-        if self.device.type == "cuda":
-            check_chunk(chunk_length(self.params.temporal.deconv.fast_chunk))
         self.state: Optional[CNMFEState] = None
         self.info: dict = {}
 

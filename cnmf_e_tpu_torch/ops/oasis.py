@@ -18,9 +18,7 @@ import torch
 from cnmf_e_tpu_torch.config import DeconvParams
 from cnmf_e_tpu_torch.ops.ar import estimate_time_constant
 from cnmf_e_tpu_torch.ops.noise import estimate_noise
-from cnmf_e_tpu_torch.ops.oasis_kernels import (oasis_chunk_pools,
-                                                oasis_pool_merge,
-                                                oasis_reconstruct)
+from cnmf_e_tpu_torch.ops.oasis_kernels import oasis_solve
 
 
 class DeconvResult(NamedTuple):
@@ -42,45 +40,23 @@ def chunk_length(chunk: int) -> int:
     return chunk if chunk > 0 else 128
 
 
-def pass1_input(y: torch.Tensor, g: torch.Tensor, lam: torch.Tensor,
-                L: int) -> torch.Tensor:
-    """The lambda-adjusted traces that pass 1 takes: y (K, T) float32 and
-    g, lam (K,) -> (K, Tp), Tp the multiple of L at or above T."""
-    K, T = y.shape
-    vinit = y - lam[:, None] * (1.0 - g[:, None])
-    vinit[:, T - 1] = y[:, T - 1] - lam
-    Tp = -(-T // L) * L
-    if Tp != T:
-        # strictly increasing pad samples, far above the trace: they never
-        # merge, so the real pools (and the last real sample's y - lam)
-        # are untouched
-        big = vinit.abs().max() * 2.0 + 1e6
-        ramp = 1.0 + torch.arange(Tp - T, dtype=torch.float32,
-                                  device=y.device)
-        vinit = torch.cat([vinit, (big * ramp)[None, :].expand(K, -1)],
-                          dim=1)
-    return vinit.contiguous()
-
-
 def oasis_ar1(y: torch.Tensor, g, lam=0.0, smin=0.0,
               chunk: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched exact OASIS AR(1). y: (..., T); g/lam/smin scalars or
     (...,). Returns (c, s) shaped like y.
 
     Chunk-local pool stacks (pass 1), then a pool-granularity merge across
-    chunk seams (pass 2), then the pools -> trace reconstruction. Merging
-    is confluent, so the result is that of the sequential algorithm."""
+    chunk seams (pass 2), then the pools -> trace reconstruction, in one
+    call on the card (:func:`oasis_solve`). Merging is confluent, so the
+    result is that of the sequential algorithm."""
     batch = y.shape[:-1]
     T = y.shape[-1]
-    yf = y.reshape(-1, T).to(torch.float32)
+    yf = y.reshape(-1, T).to(torch.float32).contiguous()
     if yf.shape[0] == 0:
         return y.clone(), torch.zeros_like(y)
     g, lam, smin = (_per_trace(x, batch, yf) for x in (g, lam, smin))
-    L = chunk_length(chunk)
-    pools = oasis_chunk_pools(pass1_input(yf, g, lam, L), g, smin, L)
-    v, w, ts, ln, n = oasis_pool_merge(*pools, g, smin)
-    c, s = oasis_reconstruct(v, w, ts, ln, n, g, v.shape[1])
-    return c[:, :T].reshape(y.shape), s[:, :T].reshape(y.shape)
+    c, s = oasis_solve(yf, g, lam, smin, chunk_length(chunk))
+    return c.reshape(y.shape), s.reshape(y.shape)
 
 
 def _g1(g: torch.Tensor, batch) -> torch.Tensor:

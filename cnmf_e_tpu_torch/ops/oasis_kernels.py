@@ -1,5 +1,5 @@
 """The three OASIS AR(1) kernels of the divide-and-conquer solve, their
-plain PyTorch versions, and the dispatch (port of
+plain PyTorch versions, the one-call solve, and the dispatch (port of
 ``cnmf_e_tpu/ops/pallas_oasis.py``).
 
   * :func:`oasis_chunk_pools`  pass 1: the sample-level pool stack on every
@@ -7,7 +7,9 @@ plain PyTorch versions, and the dispatch (port of
   * :func:`oasis_pool_merge`   pass 2: push the chunk pool lists in order
     and resolve violations across chunks (replaces ``_pool_merge_pallas``);
   * :func:`oasis_reconstruct`  pools -> (c, s) (replaces
-    ``_reconstruct_pallas``).
+    ``_reconstruct_pallas``);
+  * :func:`oasis_solve`        y -> (c, s): the three in one call (replaces
+    ``oasis_ar1_pallas_dc``).
 
 CUDA tensors launch the kernels in ``csrc/oasis.cu``; CPU tensors run the
 ``*_reference`` versions, which execute the same per-lane algorithm in
@@ -19,41 +21,50 @@ and merges, not by their few MB of bytes (the note at the head of
 ``csrc/oasis.cu``):
 
   * pass 1 runs one thread per (trace, chunk) lane in 32-lane CTAs, its
-    stack in shared memory (slot-major, one bank per lane) and its top two
-    pools in registers; the stack caps the chunk at ``K2_MAX_L`` samples
-    (:func:`check_chunk`);
+    stack slot-major (one bank or one 128-byte line per slot row) and its
+    top two pools in registers. The stack lives in shared memory for
+    chunks of up to ``K2_SMEM_MAX_L`` samples and in a global scratch past
+    that, which the wrapper allocates;
   * pass 2 runs one warp per trace. Pass 1 leaves no two adjacent pools of
     a chunk violating each other, so once a pushed pool of a chunk does not
     merge, the rest of that chunk's list is appended untested. Its input
     must therefore be pass 1's output. The plain version pushes every pool
-    and so checks the shortcut rather than assuming it.
+    and so checks the shortcut rather than assuming it;
+  * the reconstruction runs a thread a sample: a CTA finds its tile's
+    pools by a search over the sorted starts and stages them in shared
+    memory.
 
-Both kernels write every output slot, so their wrappers allocate with
+The solve entry launches the three back to back with no host work between
+them. Its pass 1 forms its own input from y (:func:`pass1_input`'s
+arithmetic) and ends each trace's last chunk at T instead of padding it;
+the padding's pools never merge, so c and s on [0, T) are those of the
+chain on :func:`pass1_input`'s output, bit for bit.
+
+Every kernel writes every output element, so the wrappers allocate with
 ``torch.empty``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 
-from cnmf_e_tpu_torch.cuda_build import check_cuda, launch
+from cnmf_e_tpu_torch.cuda_build import check_cuda, launch, load_library
 
 Pools = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
               torch.Tensor]
 
 _f32, _i32 = torch.float32, torch.int32
-# pass 1 keeps three L-slot stacks of 32 lanes in one CTA's shared memory,
-# of which Hopper gives a CTA at most 232,448 bytes
-K2_MAX_L = 232448 // (3 * 32 * 4)
-
-
-def check_chunk(L: int) -> None:
-    """Raise ValueError for a chunk longer than pass 1's kernel holds."""
-    if L > K2_MAX_L:
-        raise ValueError(f"chunk L={L} exceeds the {K2_MAX_L} samples whose "
-                         f"pool stacks fit in one CTA's shared memory")
+OASIS_KERNELS = ("oasis_chunk_pools", "oasis_pool_merge", "oasis_reconstruct")
+# pass 1 keeps three L-slot stacks of 32 lanes in one CTA's shared memory
+# up to this chunk length (Hopper gives a CTA 232,448 bytes); past it they
+# live in a global scratch (csrc/oasis.cu: kSmemOptin, kK2SmemMaxL)
+K2_SMEM_MAX_L = 232448 // (3 * 32 * 4)
+# the reconstruction's CTA: K4_THREADS threads write K4_TILE samples of one
+# trace (csrc/oasis.cu: kReconThreads, kReconTile)
+K4_THREADS, K4_TILE = 256, 512
 
 
 def _logg(g: torch.Tensor) -> torch.Tensor:
@@ -159,7 +170,8 @@ def oasis_reconstruct_reference(v, w, ts, ln, n, g, T: int
     K, P = v.shape
     dev = v.device
     logg = _logg(g)[:, None]
-    valid = torch.arange(P, device=dev)[None, :] < n[:, None]
+    # pools that start at or past T (pass 1's padding) do not reach [0, T)
+    valid = (torch.arange(P, device=dev)[None, :] < n[:, None]) & (ts < T)
     starts = torch.where(valid, ts, 0).long()
     is_start = torch.zeros((K, T), dtype=torch.long, device=dev)
     is_start.scatter_reduce_(1, starts, valid.long(), reduce="amax")
@@ -177,6 +189,36 @@ def oasis_reconstruct_reference(v, w, ts, ln, n, g, T: int
     return c, s
 
 
+def pass1_input(y: torch.Tensor, g: torch.Tensor, lam: torch.Tensor,
+                L: int) -> torch.Tensor:
+    """The lambda-adjusted traces that pass 1 takes: y (K, T) float32 and
+    g, lam (K,) -> (K, Tp), Tp the multiple of L at or above T."""
+    K, T = y.shape
+    vinit = y - lam[:, None] * (1.0 - g[:, None])
+    vinit[:, T - 1] = y[:, T - 1] - lam
+    Tp = -(-T // L) * L
+    if Tp != T:
+        # strictly increasing pad samples, far above the trace: they never
+        # merge, so the real pools (and the last real sample's y - lam)
+        # are untouched
+        big = vinit.abs().max() * 2.0 + 1e6
+        ramp = 1.0 + torch.arange(Tp - T, dtype=torch.float32,
+                                  device=y.device)
+        vinit = torch.cat([vinit, (big * ramp)[None, :].expand(K, -1)],
+                          dim=1)
+    return vinit.contiguous()
+
+
+def oasis_solve_reference(y, g, lam, smin, L: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain chain: :func:`pass1_input`, then the three plain
+    versions."""
+    pools = oasis_chunk_pools_reference(pass1_input(y, g, lam, L), g, smin,
+                                        L)
+    v, w, ts, ln, n = oasis_pool_merge_reference(*pools, g, smin)
+    return oasis_reconstruct_reference(v, w, ts, ln, n, g, y.shape[1])
+
+
 # --------------------------------------------------------------------- #
 # dispatch
 # --------------------------------------------------------------------- #
@@ -192,13 +234,22 @@ def oasis_chunk_pools(vinit: torch.Tensor, g: torch.Tensor,
         return oasis_chunk_pools_reference(vinit, g, smin, L)
     check_cuda(vinit, g, smin, dtypes=(_f32, _f32, _f32))
     _check_shapes((g, (K,)), (smin, (K,)))
-    check_chunk(L)
     nc = T // L
     v, w, ts, ln = _uninit_pools((K, nc, L), vinit.device)
     n = torch.empty((K, nc), dtype=_i32, device=vinit.device)
     launch("oasis_chunk_pools", vinit.device, vinit, g, smin, K, nc, L,
-           v, w, ts, ln, n)
+           k2_scratch(K * nc, L, vinit.device), v, w, ts, ln, n)
     return v, w, ts, ln, n
+
+
+def k2_scratch(lanes: int, L: int, device) -> Optional[torch.Tensor]:
+    """Pass 1's global stacks, three [L][32] stacks of floats a warp, for a
+    chunk whose stacks do not fit one CTA's shared memory; else None (the
+    shared-memory body)."""
+    if L <= K2_SMEM_MAX_L:
+        return None
+    return torch.empty(-(-lanes // 32) * 3 * L * 32, dtype=_f32,
+                       device=device)
 
 
 def oasis_pool_merge(v0, w0, ts0, l0, n_in, g, smin) -> Pools:
@@ -223,7 +274,8 @@ def oasis_reconstruct(v, w, ts, ln, n, g, T: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pools (K, P) covering [0, T) -> c, s (K, T):
     c[t] = max(v/w, 0) g^(t - t0) on [t0, t0 + len), and
-    s[t0] = c[t0] - g c[t0 - 1] at every pool start t0 > 0."""
+    s[t0] = c[t0] - g c[t0 - 1] at every pool start 0 < t0 < T; pools that
+    start at or past T are ignored."""
     if not v.is_cuda:
         return oasis_reconstruct_reference(v, w, ts, ln, n, g, T)
     check_cuda(v, w, ts, ln, n, g,
@@ -231,9 +283,35 @@ def oasis_reconstruct(v, w, ts, ln, n, g, T: int
     K, P = v.shape
     _check_shapes((w, v.shape), (ts, v.shape), (ln, v.shape), (n, (K,)),
                   (g, (K,)))
-    if K > 65535:
-        raise ValueError(f"K={K} traces exceed the launch grid")
-    c = torch.zeros((K, T), dtype=_f32, device=v.device)
-    s = torch.zeros((K, T), dtype=_f32, device=v.device)
-    launch("oasis_reconstruct", v.device, v, w, ts, ln, n, g, K, P, T, c, s)
+    c = torch.empty((K, T), dtype=_f32, device=v.device)
+    s = torch.empty((K, T), dtype=_f32, device=v.device)
+    launch("oasis_reconstruct", v.device, v, w, ts, n, g, K, P, T, c, s)
+    return c, s
+
+
+@functools.lru_cache(maxsize=64)
+def _solve_workspace(K: int, T: int, L: int) -> int:
+    """Bytes of the solve's workspace, from the layout in csrc/oasis.cu."""
+    return int(load_library().oasis_solve_workspace(K, T, L))
+
+
+def oasis_solve(y: torch.Tensor, g: torch.Tensor, lam: torch.Tensor,
+                smin: torch.Tensor, L: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole solve: y (K, T) float32, g, lam, smin (K,) -> c, s (K, T),
+    in chunks of L. CUDA tensors: one C entry launches pass 1 (forming
+    its input from y and lam; the last chunk ends at T), pass 2 and the
+    reconstruction on the current stream, its pools in one workspace.
+    CPU tensors: the plain chain, :func:`oasis_solve_reference`."""
+    if not y.is_cuda:
+        return oasis_solve_reference(y, g, lam, smin, L)
+    check_cuda(y, g, lam, smin, dtypes=(_f32, _f32, _f32, _f32))
+    K, T = y.shape
+    _check_shapes((g, (K,)), (lam, (K,)), (smin, (K,)))
+    ws = torch.empty(_solve_workspace(K, T, L), dtype=torch.uint8,
+                     device=y.device)
+    c = torch.empty((K, T), dtype=_f32, device=y.device)
+    s = torch.empty((K, T), dtype=_f32, device=y.device)
+    launch(OASIS_KERNELS, y.device, y, g, lam, smin, K, T, L, ws, c, s,
+           entry="oasis_solve_launch")
     return c, s

@@ -155,6 +155,7 @@ def test_kernel_wrappers_take_plain_path_only_for_cpu_tensors():
     c, s = oasis_ar1(y, torch.full((3,), 0.9))
     assert c.shape == y.shape and bool(torch.isfinite(c).all())
     assert all(v == 0 for v in cuda_build.LAUNCHES.values())
+    assert not cuda_build.ENTRY_CALLS
 
 
 def test_unported_options_raise():
