@@ -25,7 +25,10 @@ Phases (each fails the script when its check fails):
      trace; 70,000 traces, past the old grid limit; T = 2500, monotone
      traces, smin = 0, lam > 0), pool starts, lengths and counts equal to
      the plain versions'; in every case the one-call solve entry against
-     the three-wrapper chain, c and s bit-identical, both timed;
+     the three-wrapper chain, c and s bit-identical, both timed; K6 also
+     on one streamed block of phase 6's store (256x256x1000) at radii 15
+     and 18 (its shared-memory body) and 9, bit-identical to its plain
+     version, timed beside torch.sparse.mm;
   3. end-to-end consistency: CNMFE.fit on a small simulated movie on the
      card and on the CPU must agree;
   4. the fit at full size: CNMFE.fit with the 1p preset on a simulated
@@ -39,8 +42,17 @@ Phases (each fails the script when its check fails):
   5b. step consistency: the coloured step on the card and on the CPU, on
      a well-conditioned problem (C max-rel drift <= 1e-3) and on an
      ill-conditioned one (A, C and C_raw within 8x the larger of the
-     card's and the CPU's own drift under a one-ulp change of Y).
-No plain kernel version may run on the paths of phases 4 and 5, and
+     card's and the CPU's own drift under a one-ulp change of Y);
+  6. out of core: fit_streaming on a 256x256x20,000 float16 store with
+     500 planted neurons (scripts_dev/scale_demo.py --small), written to a
+     temporary directory and deleted at the end; detection F1 >= 0.9;
+     wall, stage seconds, peak memory and the upload's bytes and share of
+     the wall printed;
+  6b. fit_batches on phase 4's movie at 6000 frames in three batches of
+     2000 with phase 4's parameters; F1 >= 0.8;
+  6c. fit_streaming of a 48x48x600 store on the card and on the CPU must
+     agree.
+No plain kernel version may run on the paths of phases 4 to 6b, and
 their OASIS kernels must launch through the solve entry.
 The line before the last holds one JSON object with the per-kernel
 results; the last line is {"ok": true, "device": {...}}.
@@ -51,9 +63,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -66,10 +80,14 @@ if not torch.cuda.is_available():
 from cnmf_e_tpu_torch.config import (  # noqa: E402
     BackgroundParams, CNMFEParams, InitParams, MergeParams)
 from cnmf_e_tpu_torch.utils.metrics import detection_f1, trace_corr  # noqa: E402
-from cnmf_e_tpu_torch.utils.simulate import simulate_movie  # noqa: E402
+from cnmf_e_tpu_torch.utils.profiling import StageTimer  # noqa: E402
+from cnmf_e_tpu_torch.utils.simulate import (  # noqa: E402
+    simulate_movie, simulate_movie_store)
 from cnmf_e_tpu_torch import cuda_build  # noqa: E402
 from cnmf_e_tpu_torch.convert import step_state_from_numpy  # noqa: E402
+from cnmf_e_tpu_torch.models.batch import fit_batches  # noqa: E402
 from cnmf_e_tpu_torch.models.pipeline import CNMFE  # noqa: E402
+from cnmf_e_tpu_torch.models.streaming import fit_streaming  # noqa: E402
 from cnmf_e_tpu_torch.models.state import RingWeights  # noqa: E402
 from cnmf_e_tpu_torch.ops import (hals_kernels, oasis_kernels,  # noqa: E402
                                   ring_kernels)
@@ -912,6 +930,38 @@ def phase2_ring_fit_grid(H=128, W=128, T=2000, radius=9):
     return res
 
 
+def phase2_ring_stream_block(H=256, W=256, T=1000):
+    """K6 on one streamed block of fit_streaming's shakeout store (1000
+    frames of 256x256; the streamed ring subtraction runs at full
+    resolution and background.ring_radius, whatever background.ssub says):
+    at radius 15 and 18, which take the shared-memory body (preset_1p's
+    radius is 18), and at radius 9, phase 6's own (the register body). Each
+    bit-identical to its plain version and timed by device_ms beside
+    torch.sparse.mm of the same ring matrix."""
+    out = {}
+    for radius in (15, 18, 9):
+        X, wts = ring_problem(T, H, W, radius, seed=40 + radius)
+        case = stencil_case(f"streamed block, radius {radius}", X, wts, H, W,
+                            radius)
+        require(case["bit_identical"], f"ring_stencil on the streamed block "
+                f"(radius {radius}) is not bit-identical to its plain version")
+        times = ring_times(
+            {"ring_stencil": lambda: ring_kernels.apply_ring_stencil(
+                wts.w, wts.w0, X, H, W, radius)},
+            ring_library(wts.w, wts.w0, X, H, W, radius))
+        bms, by = ring_bounds(X, wts.w, wts.w0, wts.w.shape[1])["ring_stencil"]
+        res = dict(times["ring_stencil"], body=case["body"], R=wts.w.shape[1],
+                   bound_ms=bms, bound_by=by)
+        print(f"phase 2: ring_stencil streamed block {H}x{W}x{T} radius="
+              f"{radius} R={res['R']} body={res['body']}: kernel "
+              f"{res['ms']:.3f} ms (call {res['call_ms']:.3f}), bound "
+              f"{bms:.3f} ms ({by}), library torch.sparse.mm "
+              f"{res['library_ms']:.3f} ms: {ratios(res)}", flush=True)
+        out[f"radius={radius}"] = res
+        del X, wts
+    return out
+
+
 # ------------------------------------------------------------------ #
 # phases 3 and 4
 # ------------------------------------------------------------------ #
@@ -963,10 +1013,10 @@ def phase3_consistency():
     check_path(launches, PATH_EXACT, "ssub=1 fit")
 
 
-def fit_problem():
-    """bench.py:199-236's 1p recording: the simulated 256x256x2000 movie and
-    the 1p preset with 192 neuron slots."""
-    gt = simulate_movie(seed=7, H=256, W=256, T=2000, K=120, gSig=3.0,
+def fit_problem(T=2000):
+    """bench.py:199-236's 1p recording: the simulated 256x256x2000 movie (T
+    frames of it) and the 1p preset with 192 neuron slots."""
+    gt = simulate_movie(seed=7, H=256, W=256, T=T, K=120, gSig=3.0,
                         sn=0.1, bg_strength=1.0, min_dist=9.0,
                         spike_rate=0.02)
     params = CNMFEParams.preset_1p()
@@ -1135,6 +1185,149 @@ def phase5b_consistency():
                     f"by more than 8x their own rounding: {ratio}")
 
 
+# ------------------------------------------------------------------ #
+# phases 6, 6b and 6c: the out-of-core paths
+# ------------------------------------------------------------------ #
+# scripts_dev/scale_demo.py --small: the shakeout of SCALE.md
+STREAM_STORE = dict(seed=11, H=256, W=256, T=20_000, K=500, gSig=3.0,
+                    sn=0.08, bg_strength=0.8, min_dist=7.0, spike_rate=0.01,
+                    frames_per_block=1000)
+
+
+def stream_params():
+    return CNMFEParams(
+        init=InitParams(gSig=3.0, gSiz=10, min_corr=0.8, min_pnr=8.0,
+                        max_neurons=640, seeds_per_round=256, max_rounds=12),
+        background=BackgroundParams(model="ring", ring_radius=9,
+                                    frame_cap_factor=25),
+        merge=MergeParams(dmin=4.0, merge_thr=0.65))
+
+
+def phase6_stream(tmp: str):
+    """fit_streaming at the shakeout size: a 256x256x20,000 float16 store
+    with 500 planted neurons (2.6 GB on disk, never resident at once),
+    n_outer = 1, a 2000-frame init proxy; a warm-up on a 64x64x2000 store
+    first. Detection F1 >= 0.9 against the planted footprints, every
+    output finite."""
+    t0 = time.perf_counter()
+    store = simulate_movie_store(os.path.join(tmp, "stream"), **STREAM_STORE)
+    synth = time.perf_counter() - t0
+    warm = simulate_movie_store(os.path.join(tmp, "warm"), **dict(
+        STREAM_STORE, H=64, W=64, T=2000, K=30))
+    params = stream_params()
+    fit_streaming(warm, params, n_outer=1, init_budget_frames=2000,
+                  device=DEV)
+    torch.cuda.synchronize()
+
+    timer = StageTimer(DEV)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    with main_path() as launches:
+        t0 = time.perf_counter()
+        state = fit_streaming(store, params, n_outer=1,
+                              init_budget_frames=2000, device=DEV,
+                              timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(DEV)
+    n = int(state.n_active())
+    A = state.A[:n].cpu().numpy()
+    C = state.C[:n].cpu().numpy()
+    finite = all(bool(torch.isfinite(getattr(state, k)).all())
+                 for k in ("A", "C", "C_raw", "S", "b0"))
+    gt = np.load(os.path.join(store.root, "ground_truth.npz"))
+    f1 = detection_f1(A, np.asarray(gt["A"], np.float32))
+    gtC = np.asarray(np.load(os.path.join(store.root, "gt_C_decim.npy")),
+                     np.float32)
+    Cd = C[:, ::25][:, :gtC.shape[1]]
+    tc = trace_corr(Cd, gtC[:, :Cd.shape[1]], f1["matches"])
+    T, H, W = store.shape
+    up_s, up_b = timer.times.get("upload", 0.0), timer.bytes.get("upload", 0)
+    stages = {k: round(v, 4) for k, v in timer.times.items()}
+    print(f"phase 6: fit_streaming {H}x{W}x{T} (float16 store, "
+          f"{store.n_blocks()} blocks, synthesized in {synth:.1f} s), "
+          f"{gt['A'].shape[0]} planted neurons, n_outer=1: wall {wall:.3f} s "
+          f"({H * W * T / wall / 1e6:.1f} Mpixel-frames/s), n_active {n}, F1 "
+          f"{f1['f1']:.4f} (precision {f1['precision']:.4f}, recall "
+          f"{f1['recall']:.4f}), median trace corr on the T//25 truth grid "
+          f"{float(np.median(tc)) if len(tc) else 0.0:.4f}, peak memory "
+          f"{peak / 2**30:.3f} GiB, uploaded {up_b / 2**30:.3f} GiB in "
+          f"{timer.counts.get('upload', 0)} chunks, {up_s:.3f} s on the copy "
+          f"stream ({up_s / wall:.3f} of the wall), finite {finite}",
+          flush=True)
+    print(f"phase 6: stage seconds (StageTimer, each stage closed by a "
+          f"device synchronisation) {json.dumps(stages)}; launches "
+          f"{json.dumps(launches)}", flush=True)
+    check_path(launches, PATH_EXACT, "streaming")
+    require(finite, "fit_streaming gave non-finite values")
+    require(f1["f1"] >= 0.9, f"streaming F1 {f1['f1']:.4f} < 0.9")
+    return launches
+
+
+def phase6b_batches():
+    """fit_batches on the phase-4 movie at 6000 frames, in three batches of
+    2000 with the phase-4 parameters; F1 >= 0.8."""
+    gt, params = fit_problem(T=6000)
+    batches = np.split(gt.Y, 3)
+    fit_batches(batches[:2], params, device=DEV)              # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    with main_path() as launches:
+        t0 = time.perf_counter()
+        final, per_batch = fit_batches(batches, params, device=DEV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(DEV)
+    act = final.active.cpu().numpy()
+    A = final.A.cpu().numpy()[act]
+    finite = all(bool(torch.isfinite(getattr(final, k)).all())
+                 for k in ("A", "C", "C_raw", "S"))
+    f1 = detection_f1(A, gt.A)
+    print(f"phase 6b: fit_batches 256x256x6000 in 3 batches of 2000 "
+          f"(preset_1p, K_max=192): wall {wall:.3f} s, n_active "
+          f"{int(act.sum())} (per batch "
+          f"{[int(p.n_active()) for p in per_batch]}), F1 {f1['f1']:.4f} "
+          f"(precision {f1['precision']:.4f}, recall {f1['recall']:.4f}), "
+          f"peak memory {peak / 2**30:.3f} GiB, finite {finite}, launches "
+          f"{json.dumps(launches)}", flush=True)
+    check_path(launches, PATH_EXACT, "batch")
+    require(finite, "fit_batches gave non-finite values")
+    require(f1["f1"] >= 0.8, f"batch F1 {f1['f1']:.4f} < 0.8")
+    return launches
+
+
+def phase6c_stream_consistency(tmp: str):
+    """fit_streaming of a 48x48x600 store on the card and on the CPU: the
+    same n_active, footprints and traces matched with correlation >=
+    0.99."""
+    store = simulate_movie_store(
+        os.path.join(tmp, "small"), seed=3, H=48, W=48, T=600, K=7,
+        gSig=2.5, sn=0.06, bg_strength=0.6, min_dist=12.0, spike_rate=0.04,
+        frames_per_block=200)
+    params = CNMFEParams(
+        init=InitParams(gSig=2.5, gSiz=8, min_corr=0.8, min_pnr=8.0,
+                        max_neurons=16, seeds_per_round=8, max_rounds=4),
+        background=BackgroundParams(model="ring", ring_radius=7),
+        merge=MergeParams(dmin=4.0))
+    out = {}
+    for dev in (DEV, "cpu"):
+        st = fit_streaming(store, params, n_outer=1, init_budget_frames=300,
+                           device=dev)
+        n = int(st.n_active())
+        out[str(dev)] = (n, st.A[:n].cpu().numpy(), st.C[:n].cpu().numpy())
+    (n_g, A_g, C_g), (n_c, A_c, C_c) = out[str(DEV)], out["cpu"]
+    require(n_g == n_c > 0, f"streaming n_active differs: cuda {n_g}, cpu "
+            f"{n_c}")
+    pairs = match_by_footprint(A_g, A_c)
+    a_corr = min(p[2] for p in pairs)
+    c_corr = min(float(np.corrcoef(C_g[i], C_c[j])[0, 1])
+                 for i, j, _ in pairs)
+    print(f"phase 6c: fit_streaming cuda vs cpu on a 48x48x600 store: "
+          f"n_active {n_g} == {n_c}; min footprint corr {a_corr:.5f}, min "
+          f"trace corr {c_corr:.5f} (>= 0.99)", flush=True)
+    require(a_corr >= 0.99 and c_corr >= 0.99,
+            "cuda and cpu streaming fits disagree")
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1159,12 +1352,17 @@ def main():
     results["ring_stencil"]["max_abs_err"] = max(
         results["ring_stencil"]["max_abs_err"], fit_grid["max_abs_err"])
     results["ring_stencil"]["bit_identical"] &= fit_grid["bit_identical"]
+    results["ring_stencil"]["stream_block"] = phase2_ring_stream_block()
     phase3_consistency()
     per_path = {"fit": phase4_full()}
     per_path.update(phase5_step())
     phase5b_consistency()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        per_path["stream"] = phase6_stream(tmp)
+        per_path["batch"] = phase6b_batches()
+        phase6c_stream_consistency(tmp)
 
-    # launches: the sum over the main-path runs of phases 4 and 5
+    # launches: the sum over the main-path runs of phases 4 to 6b
     launches = {k: sum(p[k] for p in per_path.values())
                 for k in cuda_build.KERNELS}
     print(f"launches per main-path run: {json.dumps(per_path)}", flush=True)

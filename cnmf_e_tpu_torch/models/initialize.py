@@ -1,6 +1,6 @@
-"""Greedy Corr+PNR initialization in batched rounds (port of the
-``ssub = tsub = 1``, ``nk = 1`` path of ``cnmf_e_tpu/models/initialize.py``;
-reference ``greedyROI_endoscope.m``, ``extract_ac.m``).
+"""Greedy Corr+PNR initialization in batched rounds (port of
+``cnmf_e_tpu/models/initialize.py``; reference ``greedyROI_endoscope.m``,
+``extract_ac.m``).
 
 Each round takes the top local maxima of the Cn * PNR search image (exact
 non-max suppression by a max filter), extracts every seed's footprint and
@@ -11,6 +11,7 @@ band-passed movie by the rank-N update of the filtered footprints.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -20,7 +21,10 @@ import torch.nn.functional as F
 from cnmf_e_tpu_torch.config import CNMFEParams
 from cnmf_e_tpu_torch.models.state import CNMFEState, empty_state
 from cnmf_e_tpu_torch.ops.corr import correlation_image
-from cnmf_e_tpu_torch.ops.filters import filter_movie, gaussian_psf
+from cnmf_e_tpu_torch.ops.detrend import detrend
+from cnmf_e_tpu_torch.ops.filters import (box_downsample, filter_movie,
+                                          gaussian_psf, resize_linear,
+                                          resize_linear_last)
 from cnmf_e_tpu_torch.ops.morphology import (circular_constraint,
                                              connectivity_constraint)
 from cnmf_e_tpu_torch.ops.noise import (estimate_baseline_noise, noise_psd,
@@ -255,13 +259,36 @@ def initialize_greedy(Y: torch.Tensor, params: CNMFEParams,
     """Batched greedy init on a (T, H, W) movie (raw, or the residual
     Y - AC - B for the residual pick). With ``state`` given, new neurons
     append into its free slots. Returns (state, info) with the final Cn /
-    PNR maps and the seed log."""
+    PNR maps and the seed log. With ``init.ssub/tsub > 1`` (and no
+    ``state``) the init runs on the box-downsampled movie and its
+    footprints and raw traces are resized back linearly
+    (``greedyROI_endoscope.m:464-487``); ``init.nk > 1`` detrends each
+    pixel first (``initComponents_parallel.m:341-346``)."""
     ip = params.init
-    if ip.ssub > 1 or ip.tsub > 1 or ip.nk > 1:
-        raise NotImplementedError("init ssub/tsub/nk > 1 is not ported")
     T, H, W = Y.shape
     dev = Y.device
     K_max = K_max or ip.max_neurons
+    if (ip.ssub > 1 or ip.tsub > 1) and state is None:
+        ip_ds = dataclasses.replace(
+            ip, ssub=1, tsub=1, gSig=max(ip.gSig / ip.ssub, 0.0),
+            gSiz=max(int(ip.gSiz // ip.ssub), 3))
+        st_ds, info = initialize_greedy(
+            box_downsample(Y.to(torch.float32), ssub=ip.ssub, tsub=ip.tsub),
+            params.replace(init=ip_ds), K_max=K_max, min_corr=min_corr,
+            min_pnr=min_pnr, verbose=verbose)
+        C_full = resize_linear_last(st_ds.C_raw, T)
+        st = empty_state(st_ds.K_max, H, W, T, p=st_ds.g.shape[1],
+                         device=dev).replace(
+            A=resize_linear(st_ds.A, (H, W)), C=torch.clamp(C_full, min=0.0),
+            C_raw=C_full, active=st_ds.active, g=st_ds.g,
+            neuron_sn=st_ds.neuron_sn)
+        # refine the traces at the full rate with one deconvolution pass
+        if ip.deconv_at_init and params.temporal.deconv.enabled:
+            dres = deconvolve(st.C_raw, params.temporal.deconv)
+            act = st.active[:, None]
+            st = st.replace(C=torch.where(act, dres.c, 0.0),
+                            S=torch.where(act, dres.s, 0.0))
+        return st, info
     gSiz = int(ip.gSiz)
     if min_corr is None:
         min_corr = ip.min_corr
@@ -272,6 +299,9 @@ def initialize_greedy(Y: torch.Tensor, params: CNMFEParams,
     else:
         K_max = state.K_max
     Y_work = Y.to(torch.float32)
+    if ip.nk > 1:
+        Y_work = detrend(Y_work.permute(1, 2, 0), ip.nk,
+                         ip.detrend_method).permute(2, 0, 1).contiguous()
     HY, Ysig = _init_prolog(Y_work, ip.gSig, ip.center_psf)
 
     searched = torch.zeros((H, W), dtype=torch.bool, device=dev)

@@ -1,6 +1,6 @@
 """Quality control: per-neuron defect tags and false-positive removal
-(port of ``tag_neurons`` / ``remove_false_positives`` of
-``cnmf_e_tpu/models/qc.py``; reference ``Sources2D.m:1683-1715,744-759``).
+(port of ``tag_neurons`` / ``remove_false_positives`` / ``_apply_keep``
+of ``cnmf_e_tpu/models/qc.py``; reference ``Sources2D.m:1683-1715,744-759``).
 The ``classify_components`` criterion (``qc.classify_cl_thr > 0`` with an
 active-pixel mask) is not ported."""
 
@@ -41,7 +41,12 @@ def remove_false_positives(state: CNMFEState, params: CNMFEParams,
     if active_pixels is not None and params.qc.classify_cl_thr > 0:
         raise NotImplementedError("classify_components QC is not ported")
     state = tag_neurons(state, params)
-    keep = state.active & (state.tags == 0)
+    return _apply_keep(state, state.active & (state.tags == 0))
+
+
+def _apply_keep(state: CNMFEState, keep: torch.Tensor) -> CNMFEState:
+    """Deactivate the slots where ``keep`` is False and zero their
+    footprints and traces."""
     return state.replace(
         active=keep,
         A=state.A * keep[:, None, None],

@@ -1,0 +1,612 @@
+"""Out-of-core pipeline for movies larger than device memory (port of
+``cnmf_e_tpu/models/streaming.py``).
+
+The factor updates stay EXACT under streaming by accumulating the
+frame-axis Gram sums over blocks of a :class:`MovieStore`:
+
+  spatial:   U = sum_b C_b Ysig_b,  V = C C^T  -> HALS on (U, V)
+  ring fit:  the per-pixel Gram accumulation is already frame-blocked
+  temporal:  per-block projections A Ysig_b are independent given A and
+             the background; the sweeps and the deconvolution run on the
+             concatenated (K, T) traces
+
+Initialization runs on a temporally decimated in-memory proxy movie (tsub
+chosen so it fits the budget) and is refined at full rate by the streamed
+updates. The footprints stay in the row-major (K, d) layout of the state
+throughout, so the spatial solve runs the HALS kernel (K1) with no
+transpose; each block's ring subtraction runs the ring stencil (K6) at
+full resolution and ``background.ring_radius`` (``background.ssub`` is
+not read here, as in the JAX package), and the deconvolution the OASIS
+solve (K2 -> K3 -> K4).
+
+Blocks reach the card through :func:`_prefetch_blocks`: a worker thread
+reads the next chunk from the memmap into a pinned host buffer while the
+current one is computed on, the copy runs on its own CUDA stream, and the
+compute stream waits on the copy's event. Blocks upload in their stored
+dtype (float16 for the simulated scale store) and are cast on the card.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import dataclasses
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from cnmf_e_tpu_torch.config import CNMFEParams
+from cnmf_e_tpu_torch.io.store import MovieStore
+from cnmf_e_tpu_torch.models.initialize import initialize_greedy
+from cnmf_e_tpu_torch.models.merge import merge_neurons
+from cnmf_e_tpu_torch.models.pipeline import check_ported
+from cnmf_e_tpu_torch.models.qc import (_apply_keep, remove_false_positives,
+                                        tag_neurons)
+from cnmf_e_tpu_torch.models.state import (CNMFEState, RingWeights, compact,
+                                           empty_state)
+from cnmf_e_tpu_torch.ops.filters import spatial_upsample
+from cnmf_e_tpu_torch.ops.hals import (hals_spatial_sweeps_rows,
+                                       hals_temporal_sweeps)
+from cnmf_e_tpu_torch.ops.noise import noise_psd_frames
+from cnmf_e_tpu_torch.ops.oasis import deconvolve
+from cnmf_e_tpu_torch.ops.ring import apply_ring, fit_ring_weights
+from cnmf_e_tpu_torch.ops.ring_kernels import ring_offsets
+from cnmf_e_tpu_torch.ops.stats import submedian_mean
+from cnmf_e_tpu_torch.utils.profiling import timed
+
+# Chunked branches. Each is exact by construction (columns, pixels and
+# neurons are independent given the Grams) and bounds the live (K, T) or
+# (K, d) buffers of a long or wide recording; tests lower them to compare
+# the chunked result with the unchunked one.
+T_CHUNK = 25_000       # frames per temporal solve; past it deconvolution
+#                        and QC batch neurons and a post-spatial snapshot
+#                        is written
+D_CHUNK = 1 << 16      # pixels per spatial solve, past 2 * D_CHUNK pixels
+QC_ROWS = 640          # neurons per QC batch past T_CHUNK
+DECONV_BYTES = 256 << 20   # f32 trace bytes per deconvolution batch ...
+DECONV_ALIGN = 64          # ... in multiples of this many neurons
+CHUNK_BYTES = 256 << 20    # f32 frame bytes per streamed chunk
+
+
+def _row_batches(K: int, rows: int):
+    """Near-equal slices of range(K), each at most ``rows`` long."""
+    Kb = -(-K // max(-(-K // max(rows, 1)), 1))
+    return [slice(k0, min(k0 + Kb, K)) for k0 in range(0, K, Kb)]
+
+
+# ------------------------------------------------------------------ #
+# block programs: plain functions on tensors, footprints (K, d)
+# ------------------------------------------------------------------ #
+def _ring_subtract(Yb, A_kd, C_b, b0, weights, radius, H, W):
+    """The block's signal Y - B, B = W (Y - b0 - A C) + w0 + b0 by the
+    ring stencil at full resolution (``streaming.py:40-59``)."""
+    T_b = Yb.shape[0]
+    X = Yb - b0[None] - (C_b.T @ A_kd).reshape(T_b, H, W)
+    return Yb - (apply_ring(weights, X, H, W, radius) + b0[None])
+
+
+def _block_temporal_U_raw(Yb, A_kd):
+    """First-pass accumulators: the raw projection rows A Y_b (K, t) and
+    the block's pixel sum. The mean-subtracted projection is separable,
+    U[:, t] = A (Y_t - Ymean) = A Y_t - A Ymean, so the caller applies the
+    rank-1 correction once the mean image is known."""
+    Yb = Yb.to(torch.float32)
+    return A_kd @ Yb.reshape(Yb.shape[0], -1).T, Yb.sum(dim=0)
+
+
+def _block_temporal_U_ring(Yb, A_kd, C_blk, b0, weights, radius, H, W):
+    Yb = Yb.to(torch.float32)
+    Ysig = _ring_subtract(Yb, A_kd, C_blk, b0, weights, radius, H, W)
+    return A_kd @ Ysig.reshape(Yb.shape[0], -1).T
+
+
+def _block_Bf(Yb_s, A_kd, Cc_s, Ymean, j0: int):
+    """Ring-fit residual rows of an already strided frame subset; ``Cc_s``
+    holds the centred traces on the same global stride grid and ``j0`` is
+    this block's first column in it."""
+    Yb_s = Yb_s.to(torch.float32)
+    nb, H, W = Yb_s.shape
+    recon = (Cc_s[:, j0:j0 + nb].T @ A_kd).reshape(nb, H, W)
+    return Yb_s - Ymean[None] - recon
+
+
+def _interp_grid_traces(Cg, t0: int, n: int, stride: int):
+    """Linearly interpolate stride-grid traces (columns at frames 0,
+    stride, 2 stride, ...) onto the ``n`` frames from ``t0``: the
+    bootstrap iteration's C_prev for the streamed ring subtraction
+    (``update_background_parallel.m:311-317`` freezes C_prev at the
+    background stage, and iteration 0 has no full-T C yet)."""
+    j = t0 + torch.arange(n, device=Cg.device)
+    m = j // stride
+    frac = (j % stride).to(torch.float32) / float(max(stride, 1))
+    ng = Cg.shape[1]
+    m0 = torch.clamp(m, 0, ng - 1)
+    m1 = torch.clamp(m + 1, 0, ng - 1)
+    return Cg[:, m0] * (1.0 - frac)[None] + Cg[:, m1] * frac[None]
+
+
+def _block_spatial_U(U, Yb, A_kd, C_blk, b0, weights, radius, H, W):
+    """U += C_b Ysig_b, in place on the (K, d) accumulator."""
+    Yb = Yb.to(torch.float32)
+    Ysig = _ring_subtract(Yb, A_kd, C_blk, b0, weights, radius, H, W)
+    return U.addmm_(C_blk, Ysig.reshape(Yb.shape[0], -1))
+
+
+# ------------------------------------------------------------------ #
+# block upload
+# ------------------------------------------------------------------ #
+def _prefetch_blocks(store: MovieStore, device, slicer=None,
+                     sub_blocks: int = 1, spans: Optional[list] = None):
+    """Iterate frame chunks as tensors on ``device``, in order: yields
+    ``(t0, chunk)`` with t0 the chunk's global start frame, in the store's
+    dtype. ``slicer(t0, memmap) -> ndarray`` reads only the frames a pass
+    needs (the strided ring fit); ``sub_blocks`` splits each stored block
+    into that many chunks.
+
+    On a CUDA device a worker thread reads chunk i+1 into one of two
+    pinned host buffers while chunk i is computed on; each copy runs on a
+    copy stream, the compute stream waits on its event, and a buffer is
+    refilled only after its last copy's event has completed. The chunk is
+    marked used on the compute stream (``record_stream``), so its memory
+    is not reused before the work queued on it has run. With ``spans``
+    given, each copy appends (start event, end event, bytes)."""
+    device = torch.device(device)
+    fpb = store.frames_per_block
+    T = store.shape[0]
+    jobs = []
+    for i in range(store.n_blocks()):
+        nb = min(fpb, T - i * fpb)
+        step = -(-nb // max(sub_blocks, 1))
+        for s0 in range(0, nb, step):
+            jobs.append((i, s0, min(step, nb - s0)))
+
+    def frames(job):
+        i, s0, n = job
+        blk = store.read_block(i)[s0:s0 + n]
+        return slicer(i * fpb + s0, blk) if slicer is not None else blk
+
+    if device.type != "cuda":
+        for job in jobs:
+            yield job[0] * fpb + job[1], torch.from_numpy(np.array(
+                frames(job)))
+        return
+
+    copy_stream = torch.cuda.Stream(device)
+    compute = torch.cuda.current_stream(device)
+    bufs = [None, None]       # pinned host buffers, alternating
+    done = [None, None]       # each buffer's last copy-done event
+
+    def read(j):
+        chunk = frames(jobs[j])
+        slot = j % 2
+        if done[slot] is not None:
+            done[slot].synchronize()
+        if bufs[slot] is None or bufs[slot].numel() < chunk.nbytes:
+            bufs[slot] = torch.empty(chunk.nbytes, dtype=torch.uint8,
+                                     pin_memory=True)
+        host = bufs[slot][:chunk.nbytes].view(
+            torch.from_numpy(np.empty(0, chunk.dtype)).dtype
+        ).reshape(chunk.shape)
+        np.copyto(host.numpy(), chunk)
+        return host
+
+    with cf.ThreadPoolExecutor(1) as ex:
+        fut = ex.submit(read, 0)
+        for j, job in enumerate(jobs):
+            host = fut.result()
+            with torch.cuda.stream(copy_stream):
+                if spans is not None:
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record(copy_stream)
+                dev = host.to(device, non_blocking=True)
+                end = torch.cuda.Event(enable_timing=spans is not None)
+                end.record(copy_stream)
+            if spans is not None:
+                spans.append((start, end, host.numel() * host.element_size()))
+            done[j % 2] = end
+            if j + 1 < len(jobs):
+                fut = ex.submit(read, j + 1)
+            compute.wait_event(end)
+            dev.record_stream(compute)
+            yield job[0] * fpb + job[1], dev
+
+
+# ------------------------------------------------------------------ #
+# snapshots (the JAX package's npz format: A and traces as float16)
+# ------------------------------------------------------------------ #
+def _np(x, dtype=None) -> np.ndarray:
+    a = x.detach().cpu().numpy()
+    return a if dtype is None else a.astype(dtype)
+
+
+def _save_snapshot(path: str, stage: str, state: CNMFEState, A=None,
+                   traces: bool = True, **extra) -> None:
+    out = dict(stage=stage,
+               A=_np(state.A, np.float16) if A is None else A,
+               active=_np(state.active),
+               g=_np(state.g, np.float32),
+               neuron_sn=_np(state.neuron_sn, np.float32))
+    if traces:
+        out.update(C=_np(state.C, np.float16),
+                   C_raw=_np(state.C_raw, np.float16))
+    np.savez(path, **out, **extra)
+
+
+def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
+                  n_outer: int = 2, init_budget_frames: int = 4000,
+                  verbose: bool = False,
+                  snapshot_path: Optional[str] = None,
+                  device="cuda", mesh=None, timer=None) -> CNMFEState:
+    """Run CNMF-E streaming frame blocks from a :class:`MovieStore`, on
+    ``device`` (the card unless the caller passes ``device="cpu"``).
+
+    ``snapshot_path``: optional .npz path; after the init, the temporal
+    pass and every outer iteration the footprints (float16), active mask,
+    g, neuron_sn and traces are saved there, and an existing file resumes
+    the fit (the JAX package's format: a snapshot of either package
+    resumes in the other). ``timer``: optional
+    :class:`cnmf_e_tpu_torch.utils.profiling.StageTimer`; each stage ends
+    with a device synchronisation, and the uploads' copy-stream time and
+    bytes are added as stage ``upload``. ``mesh``: the multi-device
+    branch is not ported."""
+    if mesh is not None:
+        raise NotImplementedError("fit_streaming on a device mesh is not "
+                                  "ported")
+    params = params or CNMFEParams.preset_1p()
+    check_ported(params)
+    device = torch.device(device)
+    T, H, W = store.shape
+    d = H * W
+    radius = params.background.ring_radius
+    log = (lambda m: print(f"[stream] {m() if callable(m) else m}",
+                           flush=True)) if verbose else (lambda m: None)
+    spans = [] if timer is not None else None
+
+    def blocks(slicer=None, sub_blocks=1):
+        return _prefetch_blocks(store, device, slicer=slicer,
+                                sub_blocks=sub_blocks, spans=spans)
+
+    def strided(stride):
+        def slicer(t0, blk):
+            return np.ascontiguousarray(blk[(-t0) % stride::stride])
+        return slicer
+
+    def tensor(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    # ---- init on a decimated proxy movie, or resume ------------------
+    state = None
+    resume_mid = resume_post_spatial = False
+    if snapshot_path is not None and os.path.exists(snapshot_path):
+        with np.load(snapshot_path) as z:
+            A_r = np.asarray(z["A"], np.float32)
+            p_ar = int(z["g"].shape[1]) if "g" in z.files else 1
+            state = empty_state(A_r.shape[0], H, W, 1, p=p_ar,
+                                device=device).replace(
+                A=tensor(A_r), active=tensor(z["active"], torch.bool))
+            if "g" in z.files:
+                state = state.replace(g=tensor(z["g"]),
+                                      neuron_sn=tensor(z["neuron_sn"]))
+            # a traces snapshot carries the full-T deconvolved C:
+            # continue at the ring fit; a post-spatial one also carries
+            # the new A and the ring weights: continue at QC / merge
+            stage_str = str(z["stage"]) if "stage" in z.files else ""
+            full_T = "C" in z.files and z["C"].shape[1] == T
+            resume_post_spatial = stage_str.endswith("_spatial") and full_T
+            resume_mid = resume_post_spatial or (
+                stage_str.endswith("_traces") and full_T)
+            if resume_post_spatial:
+                resume_weights = RingWeights(w=tensor(z["ring_w"]),
+                                             w0=tensor(z["ring_w0"]))
+                resume_b0 = tensor(z["b0"])
+                resume_Ymean = tensor(z["Ymean"])
+            if resume_mid:
+                Cj = tensor(z["C"])
+                # S was not saved: the inverse AR(1) recurrence of the
+                # deconvolved C (zeros would trip the QC no-spikes tag)
+                s_rec = Cj - state.g[:, :1] * torch.nn.functional.pad(
+                    Cj[:, :-1], (1, 0))
+                state = state.replace(C=Cj, C_raw=tensor(z["C_raw"]),
+                                      S=torch.clamp(s_rec, min=0.0))
+        log(lambda state=state: f"resumed {int(state.n_active())} neurons "
+            f"from {snapshot_path} (stage {stage_str or '?'}"
+            f"{', mid-iteration' if resume_mid else ''})")
+    if state is None:
+        with timed(timer, "init"):
+            tsub = max(-(-T // init_budget_frames), 1)
+            ssub = max(int(params.init.ssub), 1)
+            # the proxy is built block by block on the host (bounded RAM);
+            # the spatial pool runs there too and cuts the upload by ssub^2
+            Hs, Ws = H // ssub, W // ssub
+            parts = []
+            offset = 0
+            for Yb in store.iter_blocks_raw():
+                sl = np.asarray(Yb)[(-offset) % tsub::tsub].astype(
+                    np.float32)
+                if ssub > 1:
+                    sl = sl[:, :Hs * ssub, :Ws * ssub].reshape(
+                        sl.shape[0], Hs, ssub, Ws, ssub).mean(axis=(2, 4))
+                parts.append(sl)
+                offset += Yb.shape[0]
+            Y_proxy = tensor(np.concatenate(parts, axis=0))
+            del parts
+            ip_init = dataclasses.replace(
+                params.init, tsub=1, ssub=1,
+                gSig=max(params.init.gSig / ssub, 0.0),
+                gSiz=max(int(params.init.gSiz // ssub), 3))
+            state, _ = initialize_greedy(
+                Y_proxy, params.replace(init=ip_init), verbose=verbose)
+            del Y_proxy
+            if ssub > 1:
+                # footprints back to full resolution; traces are rebuilt
+                # at full T below, so only A, active, g and sn carry
+                state = empty_state(state.K_max, H, W, 1,
+                                    p=state.g.shape[1],
+                                    device=device).replace(
+                    A=spatial_upsample(state.A, ssub, (H, W))
+                    * state.active[:, None, None],
+                    active=state.active, g=state.g,
+                    neuron_sn=state.neuron_sn)
+        log(lambda state=state: f"init (tsub={tsub}, ssub={ssub}): "
+            f"{int(state.n_active())} neurons")
+        if snapshot_path is not None:
+            _save_snapshot(snapshot_path, "init", state, traces=False)
+            log(f"init snapshot -> {snapshot_path}")
+
+    # traces expand to full T at the first temporal solve; until then
+    # they are T = 1 placeholders
+    K_cap = state.K_max
+    if not resume_mid:
+        z1 = torch.zeros((K_cap, 1), device=device)
+        state = state.replace(C=z1, C_raw=z1, S=z1)
+
+    # ---- pixel noise, cached in the store (the first noise_frame_cap
+    # frames, in row bands) ---------------------------------------------
+    with timed(timer, "noise"):
+        if store.load_noise() is None:
+            cap = min(params.noise_frame_cap, T)
+            Yn = store.read_frames(0, cap)
+            rows = max(1, min(H, int((512 << 20) // max(cap * W * 4, 1))))
+            store.save_noise(np.concatenate([
+                _np(noise_psd_frames(tensor(Yn[:, h0:h0 + rows])))
+                for h0 in range(0, H, rows)], axis=0))
+            del Yn
+
+    fpb = store.frames_per_block
+    sub_blocks = max(1, -(-fpb * d * 4 // CHUNK_BYTES))
+    R = ring_offsets(radius).shape[0]
+    stride = max(int(np.ceil(T / (params.background.frame_cap_factor * R))),
+                 1)
+    weights = None
+    Ymean = None
+
+    for it in range(n_outer):
+        skip_temporal = resume_mid and it == 0
+        skip_ring_spatial = resume_post_spatial and it == 0
+        # the (K, d) view of the footprints the block programs read
+        A_kd = state.A.reshape(K_cap, d)
+        if skip_ring_spatial:
+            state = state.replace(b0=resume_b0, W=resume_weights)
+            weights = resume_weights
+            Ymean = resume_Ymean
+            log(f"iter {it}: resumed at QC/merge")
+        elif skip_temporal:
+            # Ymean died with the interrupted process: re-estimate it on
+            # the host from the ring-fit stride grid
+            acc_h = np.zeros((H, W), np.float64)
+            n_h = 0
+            for bi in range(store.n_blocks()):
+                sub = np.asarray(store.read_block(bi)[
+                    (-(bi * fpb)) % stride::stride], np.float32)
+                acc_h += sub.sum(axis=0)
+                n_h += sub.shape[0]
+            Ymean = tensor((acc_h / max(n_h, 1)).astype(np.float32))
+            log(f"iter {it}: resumed at ring fit (strided Ymean over {n_h} "
+                f"frames)")
+        C_boot = None
+        if (not skip_temporal and weights is None
+                and params.background.ring_bootstrap):
+            # ---- strided ring bootstrap: fit the ring model from one
+            # 1/stride upload first (grid traces solved from the same
+            # frames), so iteration 0's temporal pass already subtracts
+            # the ring background (demo_large_data_1p.m:199-209) -------
+            with timed(timer, "bootstrap"):
+                Yg = torch.cat([b for _, b in blocks(strided(stride))])
+                n_grid = Yg.shape[0]
+                gb = max(fpb // stride, 1)
+                Ug = torch.empty((K_cap, n_grid), device=device)
+                acc_g = torch.zeros((H, W), device=device)
+                for g0 in range(0, n_grid, gb):
+                    Ub, s = _block_temporal_U_raw(Yg[g0:g0 + gb], A_kd)
+                    Ug[:, g0:g0 + gb] = Ub
+                    acc_g += s
+                Ymean = acc_g / n_grid
+                Vg = A_kd @ A_kd.T
+                Ug -= (A_kd @ Ymean.reshape(-1))[:, None]
+                C0g = torch.clamp(Ug / torch.clamp(torch.diagonal(Vg),
+                                                   min=1e-12)[:, None],
+                                  min=0.0)
+                Cg = hals_temporal_sweeps(Ug, Vg, C0g,
+                                          n_iter=params.temporal.n_iter,
+                                          active=state.active)
+                del Ug, C0g
+                Cg_mean = Cg.mean(dim=1)
+                state = state.replace(
+                    b0=Ymean - (Cg_mean @ A_kd).reshape(H, W))
+                Ccg = (Cg - Cg_mean[:, None]).contiguous()
+                Bf = torch.cat([_block_Bf(Yg[g0:g0 + gb], A_kd, Ccg, Ymean,
+                                          g0)
+                                for g0 in range(0, n_grid, gb)])
+                del Yg, Ccg
+                weights = fit_ring_weights(
+                    Bf, H, W, radius, ridge_eps=params.background.ridge_eps)
+                del Bf
+                state = state.replace(W=weights)
+                C_boot = Cg
+            log(f"iter {it}: ring bootstrap fit ({n_grid} strided frames)")
+        if not skip_temporal:
+            # ---- temporal pass: the projection U = A Ysig accumulates
+            # over blocks and V = A A^T is frame-independent, so the full
+            # cross-term coordinate descent (HALS_temporal.m:58-107) runs
+            # exactly as in memory ----------------------------------------
+            with timed(timer, "temporal"):
+                V = A_kd @ A_kd.T
+                aa = torch.diagonal(V)
+                U = torch.empty((K_cap, T), device=device)
+                if weights is None:
+                    # the first pass doubles as the mean-image
+                    # accumulation
+                    acc = torch.zeros((H, W), device=device)
+                    for t0, Yb in blocks(sub_blocks=sub_blocks):
+                        Ub, s = _block_temporal_U_raw(Yb, A_kd)
+                        U[:, t0:t0 + Yb.shape[0]] = Ub
+                        acc += s
+                    Ymean = acc / T
+                    U -= (A_kd @ Ymean.reshape(-1))[:, None]
+                else:
+                    for t0, Yb in blocks(sub_blocks=sub_blocks):
+                        n = Yb.shape[0]
+                        C_blk = (_interp_grid_traces(C_boot, t0, n, stride)
+                                 if C_boot is not None
+                                 else state.C[:, t0:t0 + n])
+                        U[:, t0:t0 + n] = _block_temporal_U_ring(
+                            Yb, A_kd, C_blk, state.b0, weights, radius, H, W)
+                # frame-chunked sweeps: columns are independent given V
+                parts = []
+                for t0 in range(0, T, T_CHUNK):
+                    Ub = U[:, t0:t0 + T_CHUNK].contiguous()
+                    C0 = torch.clamp(Ub / torch.clamp(aa, min=1e-12)[:, None],
+                                     min=0.0)
+                    parts.append(hals_temporal_sweeps(
+                        Ub, V, C0, n_iter=params.temporal.n_iter,
+                        active=state.active))
+                del U
+                C_raw = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+                del parts
+                # neuron-batched baseline + deconvolution: rows are
+                # independent, so batching is exact
+                act = state.active[:, None]
+                rows = (max(DECONV_ALIGN, DECONV_BYTES // max(T * 4, 1)
+                            // DECONV_ALIGN * DECONV_ALIGN)
+                        if T > T_CHUNK else K_cap)
+                C_new = torch.empty_like(C_raw)
+                Cr_new = torch.empty_like(C_raw)
+                S_new = torch.empty_like(C_raw)
+                for sl in _row_batches(K_cap, rows):
+                    Cb = C_raw[sl]
+                    Cb = Cb - submedian_mean(Cb, dim=-1)[:, None]
+                    res = deconvolve(Cb, params.temporal.deconv)
+                    C_new[sl] = torch.where(act[sl], res.c, 0.0)
+                    Cr_new[sl] = torch.where(act[sl], Cb - res.b[:, None],
+                                             0.0)
+                    S_new[sl] = torch.where(act[sl], res.s, 0.0)
+                del C_raw
+                state = state.replace(C=C_new, C_raw=Cr_new, S=S_new)
+            log(lambda state=state:
+                f"iter {it}: traces ({int(state.n_active())} neurons)")
+            if snapshot_path is not None:
+                # A is unchanged by the temporal stage: reuse the previous
+                # snapshot's copy
+                A_prev = None
+                if os.path.exists(snapshot_path):
+                    with np.load(snapshot_path) as z:
+                        A_prev = z["A"]
+                _save_snapshot(snapshot_path, f"iter{it}_traces", state,
+                               A=A_prev)
+                log(f"iter {it}: traces snapshot -> {snapshot_path}")
+
+        if not skip_ring_spatial:
+            # ---- ring background fit on strided residual rows ----------
+            with timed(timer, "ring_fit"):
+                Cmean = state.C.mean(dim=-1)
+                state = state.replace(
+                    b0=Ymean - (Cmean @ A_kd).reshape(H, W))
+                Cc_s = (state.C - Cmean[:, None])[:, ::stride].contiguous()
+                Bf = torch.cat([
+                    _block_Bf(Yb_s, A_kd, Cc_s, Ymean, -(-t0 // stride))
+                    for t0, Yb_s in blocks(strided(stride))])
+                del Cc_s
+                weights = fit_ring_weights(
+                    Bf, H, W, radius, ridge_eps=params.background.ridge_eps)
+                del Bf
+                state = state.replace(W=weights)
+            log(f"iter {it}: ring background fit")
+
+            # ---- spatial: streamed Gram accumulation, then HALS on the
+            # row-major (K, d) factor -----------------------------------
+            with timed(timer, "spatial"):
+                C = state.C
+                U = torch.zeros((K_cap, d), device=device)
+                for t0, Yb in blocks(sub_blocks=sub_blocks):
+                    _block_spatial_U(U, Yb, A_kd, C[:, t0:t0 + Yb.shape[0]],
+                                     state.b0, weights, radius, H, W)
+                V = C @ C.T
+                if d > 2 * D_CHUNK:
+                    # pixel-chunked sweeps: pixels are independent given V
+                    A_new = torch.cat([hals_spatial_sweeps_rows(
+                        U[:, p0:p0 + D_CHUNK].contiguous(), V,
+                        A_kd[:, p0:p0 + D_CHUNK].contiguous(),
+                        n_iter=params.spatial.n_iter)
+                        for p0 in range(0, d, D_CHUNK)], dim=1)
+                else:
+                    A_new = hals_spatial_sweeps_rows(
+                        U, V, A_kd, n_iter=params.spatial.n_iter)
+                del U, A_kd
+                state = state.replace(A=A_new.reshape(K_cap, H, W)
+                                      * state.active[:, None, None])
+            log(f"iter {it}: spatial")
+            if snapshot_path is not None and T > T_CHUNK:
+                # post-spatial snapshot: a resume point past the two
+                # full-movie passes
+                _save_snapshot(snapshot_path, f"iter{it}_spatial", state,
+                               ring_w=_np(weights.w, np.float16),
+                               ring_w0=_np(weights.w0, np.float32),
+                               b0=_np(state.b0, np.float32),
+                               Ymean=_np(Ymean, np.float32))
+                log(f"iter {it}: spatial snapshot -> {snapshot_path}")
+
+        with timed(timer, "qc_merge"):
+            state = _quality_control(state, params, T, deactivate=True)
+            # deconv=False: non-final iterations are re-deconvolved by the
+            # next temporal pass; on the final one the merged clusters
+            # keep their rank-1 refit traces
+            state, nm = merge_neurons(state, params, "dist_corr",
+                                      deconv=False)
+            state, nm2 = merge_neurons(state, params, "dist_only",
+                                       deconv=False)
+        log(lambda nm=nm, nm2=nm2, state=state:
+            f"iter {it}: QC + merges ({int(nm)}+{int(nm2)}), "
+            f"{int(state.n_active())} neurons")
+        if snapshot_path is not None:
+            _save_snapshot(snapshot_path, f"iter{it}", state)
+            log(f"iter {it}: snapshot -> {snapshot_path}")
+
+    with timed(timer, "tags"):
+        state = compact(_quality_control(state, params, T,
+                                         deactivate=False))
+    if timer is not None and spans:
+        torch.cuda.synchronize(device)
+        timer.add("upload", sum(a.elapsed_time(b) for a, b, _ in spans)
+                  / 1e3, count=len(spans),
+                  nbytes=sum(n for _, _, n in spans))
+    return state
+
+
+def _quality_control(state: CNMFEState, params: CNMFEParams, T: int,
+                     deactivate: bool) -> CNMFEState:
+    """Tag the neurons (and, with ``deactivate``, drop the tagged ones),
+    in batches of at most QC_ROWS neurons past T_CHUNK frames: the tags'
+    Welch PSD frames the whole (K, T) C_raw, and rows are independent."""
+    if T <= T_CHUNK:
+        return (remove_false_positives(state, params) if deactivate
+                else tag_neurons(state, params))
+    tags = torch.cat([tag_neurons(state.replace(
+        A=state.A[sl], C=state.C[sl], C_raw=state.C_raw[sl], S=state.S[sl],
+        active=state.active[sl], g=state.g[sl],
+        neuron_sn=state.neuron_sn[sl], tags=state.tags[sl]), params).tags
+        for sl in _row_batches(state.K_max, QC_ROWS)])
+    state = state.replace(tags=tags)
+    if not deactivate:
+        return state
+    return _apply_keep(state, state.active & ~((tags != 0) & state.active))

@@ -1,5 +1,5 @@
-"""Spatial filtering (port of the parts of ``cnmf_e_tpu/ops/filters.py``
-that ``CNMFE.fit`` reaches).
+"""Spatial filtering and resampling (port of ``cnmf_e_tpu/ops/filters.py``
+without the TPU's banded-matmul filter).
 
 Movies are (T, H, W). ``filter_movie`` is the JAX package's conv form: an
 edge-padded correlation with the flipped PSF, i.e. a true convolution with
@@ -55,16 +55,21 @@ def neighbor_kernel(dmin: float = 1.0, dmax: float = 2.0) -> np.ndarray:
     return ((R >= dmin) & (R < dmax)).astype(np.float32)
 
 
-def box_downsample(Y: torch.Tensor, ssub: int = 1) -> torch.Tensor:
-    """Spatial box down-sampling of a (T, H, W) movie (``dsData.m:33-43``);
-    a ragged edge is edge-padded into the last bin."""
-    if ssub <= 1:
-        return Y
+def box_downsample(Y: torch.Tensor, ssub: int = 1,
+                   tsub: int = 1) -> torch.Tensor:
+    """Spatio-temporal box down-sampling of a (T, H, W) movie
+    (``dsData.m:33-43``): a ragged spatial edge is edge-padded into the
+    last bin; trailing frames short of a full ``tsub`` bin are dropped."""
     T, H, W = Y.shape
-    Hs, Ws = -(-H // ssub), -(-W // ssub)
-    Yp = F.pad(Y[:, None], (0, Ws * ssub - W, 0, Hs * ssub - H),
-               mode="replicate")[:, 0]
-    return Yp.reshape(T, Hs, ssub, Ws, ssub).mean(dim=(2, 4))
+    if ssub > 1:
+        Hs, Ws = -(-H // ssub), -(-W // ssub)
+        Yp = F.pad(Y[:, None], (0, Ws * ssub - W, 0, Hs * ssub - H),
+                   mode="replicate")[:, 0]
+        Y = Yp.reshape(T, Hs, ssub, Ws, ssub).mean(dim=(2, 4))
+    if tsub > 1:
+        Ts = T // tsub
+        Y = Y[:Ts * tsub].reshape((Ts, tsub) + tuple(Y.shape[1:])).mean(dim=1)
+    return Y
 
 
 def resize_linear(X: torch.Tensor, out_hw) -> torch.Tensor:
@@ -76,3 +81,19 @@ def resize_linear(X: torch.Tensor, out_hw) -> torch.Tensor:
     out = F.interpolate(Xf, size=tuple(out_hw), mode="bilinear",
                         align_corners=False)
     return out.reshape(lead + tuple(out_hw))
+
+
+def resize_linear_last(X: torch.Tensor, n: int) -> torch.Tensor:
+    """Linear resize of the last axis to ``n`` samples, half-pixel centres
+    (``jax.image.resize`` of a (K, T) array to (K, n), ``"linear"``)."""
+    lead = X.shape[:-1]
+    out = F.interpolate(X.reshape(-1, 1, X.shape[-1]), size=n,
+                        mode="linear", align_corners=False)
+    return out.reshape(lead + (n,))
+
+
+def spatial_upsample(A: torch.Tensor, ssub: int, out_hw) -> torch.Tensor:
+    """Bilinear upsample of footprints (K, Hs, Ws) -> (K, H, W)."""
+    if ssub == 1:
+        return A
+    return resize_linear(A, out_hw)

@@ -1,6 +1,6 @@
-"""Synthetic calcium-imaging data with known ground truth (a copy of the
-in-memory part of ``cnmf_e_tpu/utils/simulate.py``; the out-of-core
-``simulate_movie_store`` is not copied).
+"""Synthetic calcium-imaging data with known ground truth (a copy of
+``cnmf_e_tpu/utils/simulate.py``, the out-of-core ``simulate_movie_store``
+included).
 
 The reference has trace-level generators (``OASIS_matlab/functions/gen_data.m``)
 used by its self-tests; movie-level fixtures did not exist. This module
@@ -131,3 +131,129 @@ def simulate_movie(seed: int = 0, H: int = 64, W: int = 64, T: int = 1000,
                        b0=b0.astype(np.float32, copy=False),
                        Bf=Bf.astype(np.float32, copy=False),
                        centers=centers, g=g, sn=sn)
+
+
+def simulate_movie_store(out_dir: str, seed: int = 0, H: int = 512,
+                         W: int = 512, T: int = 100_000, K: int = 2000,
+                         gSig: float = 3.0, g: float = 0.95,
+                         sn: float = 0.1, bg_strength: float = 1.0,
+                         spike_rate: float = 0.01, min_dist: float = 8.0,
+                         baseline: float = 1.0,
+                         frames_per_block: int = 1000,
+                         dtype: str = "float16",
+                         overwrite: bool = False):
+    """Synthesize an out-of-core movie DIRECTLY into a MovieStore, one
+    frame block at a time (bounded host RAM; the AR-trace and background
+    temporal recursions carry state across blocks).
+
+    The scale target is BASELINE.md config 5 (512x512x100k, 2k neurons) —
+    a movie that never exists in memory at once; ``chip_smoke.py`` streams
+    its 256x256x20k, 500-neuron shakeout size. Blocks are written in
+    ``dtype`` (float16 halves the disk footprint; ingest casts to f32).
+    Ground truth (A as float16, centers, g) is saved to
+    ``out_dir/ground_truth.npz``; traces are NOT stored at full rate (they
+    would rival the movie's size) — a ``gt_C_decim.npy`` (K, T//25)
+    decimation is kept for spot checks.
+
+    Returns the :class:`cnmf_e_tpu_torch.io.store.MovieStore`; the files
+    are byte-for-byte those the JAX package's copy writes at equal
+    arguments.
+    """
+    import json
+    import os
+
+    from cnmf_e_tpu_torch.io.store import MovieStore
+
+    man_path = os.path.join(out_dir, "manifest.json")
+    if os.path.exists(man_path) and not overwrite:
+        store = MovieStore(out_dir)
+        if tuple(store.shape) == (T, H, W) and \
+                store.frames_per_block == frames_per_block:
+            return store
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+
+    # sparse footprints: the gaussian is evaluated only inside a 2-sigma
+    # box per neuron (a full-FOV exp per neuron is the synthesis
+    # bottleneck at K=2000, H=W=512)
+    margin = 6
+    centers = []
+    tries = 0
+    while len(centers) < K and tries < 50 * K:
+        tries += 1
+        c = np.array([rng.uniform(margin, H - margin),
+                      rng.uniform(margin, W - margin)])
+        if min_dist > 0 and centers:
+            if np.min(np.linalg.norm(np.array(centers) - c,
+                                     axis=1)) < min_dist:
+                continue
+        centers.append(c)
+    centers = np.array(centers[:K])
+    K = len(centers)
+    A = np.zeros((K, H, W), np.float32)
+    boxes = []
+    for k, (cy, cx) in enumerate(centers):
+        sig = gSig * rng.uniform(0.8, 1.2)
+        half = int(np.ceil(2.0 * sig))
+        y0, y1 = max(int(cy) - half, 0), min(int(cy) + half + 1, H)
+        x0, x1 = max(int(cx) - half, 0), min(int(cx) + half + 1, W)
+        yy, xx = np.mgrid[y0:y1, x0:x1]
+        blob = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * sig ** 2))
+        blob[blob < np.exp(-2.0)] = 0.0
+        A[k, y0:y1, x0:x1] = blob
+        boxes.append((y0, y1, x0, x1))
+
+    b0 = (baseline * (0.5 + smooth_field(rng, H, W, scale=max(H, W) / 2))
+          ).astype(np.float32)
+    profs = np.stack([
+        (bg_strength * smooth_field(rng, H, W, scale=max(H, W) / 3)).ravel()
+        for _ in range(2)]).astype(np.float32)                  # (2, H*W)
+    bg_g = np.exp(-1.0 / rng.uniform(50, 200, size=2)).astype(np.float32)
+    bg_scale = np.sqrt(1.0 - bg_g ** 2)          # unit-variance AR(1)
+
+    n_blocks = -(-T // frames_per_block)
+    c_carry = np.zeros(K, np.float32)
+    d_carry = np.zeros(2, np.float32)
+    C_dec = []
+    t_global = 0
+    for b in range(n_blocks):
+        Tb = min(frames_per_block, T - b * frames_per_block)
+        S_blk = ((rng.random((K, Tb)) < spike_rate) * (
+            0.5 + rng.random((K, Tb)))).astype(np.float32)
+        C_blk = np.empty((K, Tb), np.float32)
+        d_noise = rng.standard_normal((2, Tb), dtype=np.float32)
+        drives = np.empty((2, Tb), np.float32)
+        for t in range(Tb):
+            c_carry = c_carry * g + S_blk[:, t]
+            C_blk[:, t] = c_carry
+            d_carry = d_carry * bg_g + bg_scale * d_noise[:, t]
+            drives[:, t] = d_carry
+        # rank-1 adds beat a k=2 GEMM here (BLAS is pathological on the
+        # (Tb, 2) @ (2, d) shape)
+        Y = np.broadcast_to(b0[None], (Tb, H, W)).copy()
+        Yf = Y.reshape(Tb, H * W)
+        for i in range(2):
+            Yf += np.outer(drives[i], profs[i])
+        for k in range(K):
+            y0, y1, x0, x1 = boxes[k]
+            Y[:, y0:y1, x0:x1] += C_blk[k][:, None, None] * \
+                A[k, y0:y1, x0:x1][None]
+        rows = max(1, (1 << 26) // (H * W))
+        for t0 in range(0, Tb, rows):
+            t1 = min(t0 + rows, Tb)
+            Y[t0:t1] += sn * rng.standard_normal(
+                (t1 - t0, H, W), dtype=np.float32)
+        np.save(os.path.join(out_dir, f"block_{b:05d}.npy"),
+                Y.astype(dtype))
+        first = (-t_global) % 25
+        C_dec.append(C_blk[:, first::25])
+        t_global += Tb
+
+    with open(man_path, "w") as f:
+        json.dump({"shape": [T, H, W], "frames_per_block": frames_per_block,
+                   "source": "synthetic", "source_dtype": dtype}, f)
+    np.savez(os.path.join(out_dir, "ground_truth.npz"),
+             A=A.astype(np.float16), centers=centers, g=g, sn=sn, b0=b0)
+    np.save(os.path.join(out_dir, "gt_C_decim.npy"),
+            np.concatenate(C_dec, axis=1).astype(np.float16))
+    return MovieStore(out_dir)

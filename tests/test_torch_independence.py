@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports nothing of JAX or of the JAX
 package, and its own copies of the JAX package's pure-numpy modules (the
-params, the movie simulation, the metrics, the connected components) give
-the same results. Its entry points default to the card."""
+params, the movie simulation and its out-of-core store, the metrics, the
+connected components, the data layer) give the same results. Its entry
+points default to the card."""
 
 import ast
 import dataclasses
@@ -16,9 +17,11 @@ from cnmf_e_tpu import config as jax_config
 from cnmf_e_tpu.native import connected_components as jax_cc
 from cnmf_e_tpu.utils import metrics as jax_metrics
 from cnmf_e_tpu.utils import simulate as jax_simulate
-from cnmf_e_tpu_torch import config, convert
+from cnmf_e_tpu_torch import checkpoint, config, convert
+from cnmf_e_tpu_torch.models.batch import fit_batches
 from cnmf_e_tpu_torch.models.merge import connected_components
 from cnmf_e_tpu_torch.models.pipeline import CNMFE
+from cnmf_e_tpu_torch.models.streaming import fit_streaming
 from cnmf_e_tpu_torch.utils import metrics, simulate
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -116,5 +119,46 @@ def test_detection_f1_copy_agrees():
 
 def test_entry_points_default_to_the_card():
     assert CNMFE(config.CNMFEParams.preset_1p()).device.type == "cuda"
-    for fn in (convert.state_from_numpy, convert.step_state_from_numpy):
+    for fn in (convert.state_from_numpy, convert.step_state_from_numpy,
+               fit_streaming, fit_batches, checkpoint.restore_state):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+# the port's copies of pure-numpy modules of the JAX package
+COPIES = ["io/tiff.py", "io/avi.py", "io/movie.py", "io/store.py",
+          "io/export.py", "checkpoint.py", "utils/profiling.py",
+          "ops/detrend.py", "utils/simulate.py"]
+
+
+@pytest.mark.parametrize("path", COPIES)
+def test_copy_has_the_jax_packages_public_functions(path):
+    """Each copy offers every public function and class of its JAX
+    original, under the same name and parameters."""
+    def public(pkg):
+        tree = ast.parse(open(os.path.join(REPO, pkg, path)).read())
+        return {n.name: [a.arg for a in n.args.args]
+                if isinstance(n, ast.FunctionDef) else None
+                for n in tree.body
+                if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                and not n.name.startswith("_")}
+    ours, theirs = public("cnmf_e_tpu_torch"), public("cnmf_e_tpu")
+    for name, args in theirs.items():
+        assert name in ours, name
+        # the port's functions may add a trailing device argument
+        if args is not None:
+            assert ours[name][:len(args)] == args, name
+
+
+@pytest.mark.parametrize("fpb", [250, 1000])
+def test_simulate_movie_store_copy_writes_the_same_bytes(tmp_path, fpb):
+    kw = dict(seed=3, H=40, W=36, T=750, K=7, gSig=2.5, sn=0.06,
+              bg_strength=0.6, min_dist=12.0, spike_rate=0.04,
+              frames_per_block=fpb)
+    ours = simulate.simulate_movie_store(str(tmp_path / "t"), **kw)
+    jax_simulate.simulate_movie_store(str(tmp_path / "j"), **kw)
+    assert ours.shape == (750, 40, 36)
+    names = sorted(os.listdir(tmp_path / "j"))
+    assert sorted(os.listdir(tmp_path / "t")) == names
+    for name in names:
+        assert (tmp_path / "t" / name).read_bytes() == \
+            (tmp_path / "j" / name).read_bytes(), name

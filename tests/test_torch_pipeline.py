@@ -133,6 +133,11 @@ def test_port_never_imports_jax():
         CNMFE(p, device="cpu").fit(gt.Y, n_outer=1)
         import cnmf_e_tpu_torch.parallel.step
         import cnmf_e_tpu_torch.convert
+        import cnmf_e_tpu_torch.models.streaming
+        import cnmf_e_tpu_torch.models.batch
+        import cnmf_e_tpu_torch.io.export
+        import cnmf_e_tpu_torch.checkpoint
+        import cnmf_e_tpu_torch.utils.profiling
         assert "jax" not in sys.modules, "jax was imported"
         jax_pkg = sorted(m for m in sys.modules
                          if m.split(".")[0] == "cnmf_e_tpu")
@@ -165,5 +170,7 @@ def test_unported_options_raise():
             p.background, model="svd")), device="cpu").fit(
                 np.zeros((20, 8, 8), np.float32))
     with pytest.raises(NotImplementedError):
-        CNMFE(p.replace(init=dataclasses.replace(p.init, ssub=2)),
+        CNMFE(p.replace(temporal=dataclasses.replace(
+            p.temporal, deconv=dataclasses.replace(p.temporal.deconv,
+                                                   model="ar2"))),
               device="cpu").fit(np.zeros((20, 8, 8), np.float32))
