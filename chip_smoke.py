@@ -51,8 +51,23 @@ Phases (each fails the script when its check fails):
   6b. fit_batches on phase 4's movie at 6000 frames in three batches of
      2000 with phase 4's parameters; F1 >= 0.8;
   6c. fit_streaming of a 48x48x600 store on the card and on the CPU must
-     agree.
-No plain kernel version may run on the paths of phases 4 to 6b, and
+     agree;
+  7. the command line (cnmf_e_tpu_torch/run.py, --device cuda by default)
+     on a temporary directory: 7a phase 4's movie as a float32 TIFF with
+     the 1p preset, --max-neurons 192 --dff --save-mat (and --report
+     --neuron-panels where matplotlib and PIL are installed; otherwise a
+     line says that the figures were not written and why), F1 >= 0.8 and
+     finite DF/F, then --resume from its final snapshot with a
+     decisions.json of two rejects and one merge pair, whose summary
+     counts the resumed fit's neurons less the merged and dropped ones;
+     7b the same TIFF with --batch-frames 1000 --dff, F1 >= 0.8; 7c a
+     64x64x600 svd fit and its DF/F on the card and on the CPU must agree
+     (n_active, correlations >= 0.99, F0 within 1e-4 relative), then the
+     2p preset (svd background) on a simulated 256x256x2000 2p movie,
+     recall >= 0.75 and no ring kernel launched, and once with --bg-model
+     nmf; each run's wall split into fit, DF/F and figures, with peak
+     memory.
+No plain kernel version may run on the paths of phases 4 to 7, and
 their OASIS kernels must launch through the solve entry.
 The line before the last holds one JSON object with the per-kernel
 results; the last line is {"ok": true, "device": {...}}.
@@ -62,6 +77,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import os
 import statistics
@@ -84,8 +100,12 @@ from cnmf_e_tpu_torch.utils.profiling import StageTimer  # noqa: E402
 from cnmf_e_tpu_torch.utils.simulate import (  # noqa: E402
     simulate_movie, simulate_movie_store)
 from cnmf_e_tpu_torch import cuda_build  # noqa: E402
-from cnmf_e_tpu_torch.convert import step_state_from_numpy  # noqa: E402
+from cnmf_e_tpu_torch import run as cli  # noqa: E402
+from cnmf_e_tpu_torch.convert import (  # noqa: E402
+    state_from_numpy, state_to_numpy, step_state_from_numpy)
+from cnmf_e_tpu_torch.io.tiff import write_tiff  # noqa: E402
 from cnmf_e_tpu_torch.models.batch import fit_batches  # noqa: E402
+from cnmf_e_tpu_torch.models.dff import extract_dff  # noqa: E402
 from cnmf_e_tpu_torch.models.pipeline import CNMFE  # noqa: E402
 from cnmf_e_tpu_torch.models.streaming import fit_streaming  # noqa: E402
 from cnmf_e_tpu_torch.models.state import RingWeights  # noqa: E402
@@ -131,6 +151,7 @@ REFERENCES = ((hals_kernels, "hals_sweeps_reference"),
 PATH_EXACT = {"hals_sweeps", "oasis_chunk_pools", "oasis_pool_merge",
               "oasis_reconstruct", "ring_stencil"}
 PATH_MXU = PATH_EXACT - {"ring_stencil"} | {"ring_banded_flat"}
+PATH_2P = PATH_EXACT - {"ring_stencil"}      # a low-rank background
 OASIS_NAMES = oasis_kernels.OASIS_KERNELS  # launched by the solve entry
 RADIUS = 13                 # bench.py's ring radius at 256 x 256
 # peak rates of one H100 SXM at 700 W (NVIDIA's data sheet): FP32 on the
@@ -1328,6 +1349,180 @@ def phase6c_stream_consistency(tmp: str):
             "cuda and cpu streaming fits disagree")
 
 
+# ------------------------------------------------------------------ #
+# phase 7: the command line (cnmf_e_tpu_torch/run.py) on the card
+# ------------------------------------------------------------------ #
+# the figure step's host packages; without them the CLI's figure step
+# raises ImportError, so phase 7 then runs its fit/export/DF-F step alone
+PLOTTING_MISSING = [m for m in ("matplotlib", "PIL")
+                    if importlib.util.find_spec(m) is None]
+PLOTTING = not PLOTTING_MISSING
+
+
+def cli_run(what, movie, workdir, flags, path, absent=()):
+    """One CLI run through run.py's steps (fit/export/DF-F, figures,
+    summary) as main() runs them, inside main_path(): every kernel of
+    ``path`` launched, none of ``absent``. Returns (run directory,
+    summary, launches)."""
+    argv = [movie, "--workdir", workdir, "--quiet", *flags]
+    if PLOTTING:
+        argv += ["--report", "--neuron-panels"]
+    args = cli.parse_args(argv)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    with main_path() as launches:
+        t0 = time.perf_counter()
+        r = cli.fit_step(args)
+        if PLOTTING:
+            cli.figure_step(r)
+        summary = cli.write_summary(r)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(DEV)
+    secs = {k: round(v, 3) for k, v in r.seconds.items()}
+    fit = sum(r.seconds[k] for k in ("load", "fit", "export"))
+    print(f"phase 7: cli {what}: wall {wall:.3f} s; the fit step {fit:.3f} "
+          f"s, DF/F {r.seconds.get('dff', 0.0):.3f} s, figures "
+          f"{r.seconds.get('figures', 0.0):.3f} s; seconds "
+          f"{json.dumps(secs)} (load = the movie read or the store written,"
+          f" fit = the fit and the decisions, export = results and "
+          f"snapshots), peak memory {peak / 2**30:.3f} GiB, n_neurons "
+          f"{summary['n_neurons']}, launches {json.dumps(launches)}",
+          flush=True)
+    check_path(launches, path, f"cli {what}")
+    require(all(launches[k] == 0 for k in absent),
+            f"cli {what} launched {absent}: {launches}")
+    return r.run_log.dir, summary, launches
+
+
+def cli_score(what, rdir, gt, gate: str, bar: float):
+    """F1 / recall of results.npz against ground truth; dff.npz finite."""
+    with np.load(os.path.join(rdir, "results.npz")) as z:
+        A = z["A"]
+    f1 = detection_f1(A, gt.A)
+    with np.load(os.path.join(rdir, "dff.npz")) as z:
+        dff_ok = bool(np.isfinite(z["C_df"]).all()
+                      and np.isfinite(z["F0"]).all())
+    print(f"phase 7: cli {what}: {A.shape[0]} neurons in results.npz, F1 "
+          f"{f1['f1']:.4f} (precision {f1['precision']:.4f}, recall "
+          f"{f1['recall']:.4f}), DF/F finite {dff_ok}", flush=True)
+    require(f1[gate] >= bar, f"cli {what}: {gate} {f1[gate]:.4f} < {bar}")
+    require(dff_ok, f"cli {what}: non-finite DF/F")
+
+
+def phase7_cli(tmp: str):
+    """7a: phase 4's movie as a float32 TIFF through the CLI (1p preset,
+    --dff --save-mat), F1 >= 0.8, then --resume from its final snapshot
+    with a decisions.json; 7b: the same TIFF in 1000-frame batches with
+    --dff, F1 >= 0.8; 7c: the 2p preset (svd) on a 2p movie, recall >=
+    0.75, no ring kernel, and once with --bg-model nmf, finite."""
+    if not PLOTTING:
+        print(f"phase 7: figures not written: {' and '.join(PLOTTING_MISSING)}"
+              f" not installed on this machine; the CLI's figure step (host "
+              f"work) is skipped, the fit, export and DF/F run in full",
+              flush=True)
+    per_path = {}
+    gt, _ = fit_problem()
+    tif = os.path.join(tmp, "movie_1p.tif")
+    write_tiff(tif, gt.Y)
+    rdir, summary, per_path["cli_1p"] = cli_run(
+        "1p 256x256x2000 --max-neurons 192 --dff --save-mat", tif,
+        os.path.join(tmp, "cli_1p"), ["--max-neurons", "192", "--dff",
+                                      "--save-mat"], PATH_EXACT)
+    cli_score("1p", rdir, gt, "f1", 0.8)
+    require(os.path.exists(os.path.join(rdir, "results.mat")),
+            "cli 1p wrote no results.mat")
+
+    (snap,) = [f for f in os.listdir(rdir) if "_final_" in f]
+    dec = os.path.join(tmp, "decisions.json")
+    with open(dec, "w") as f:
+        json.dump({"rejected": [1, 3], "merge": [[0, 2]]}, f)
+    rdir2, summary2, per_path["cli_resume"] = cli_run(
+        "1p --resume <final snapshot> --apply-decisions (2 rejected, 1 "
+        "merge pair)", tif, os.path.join(tmp, "cli_resume"),
+        ["--max-neurons", "192", "--resume", os.path.join(rdir, snap),
+         "--apply-decisions", dec], PATH_EXACT)
+    logs = open(os.path.join(rdir2, "logs.txt")).read()
+    fitted = int(logs.split("done: ")[1].split(" neurons")[0])
+    merged = int(logs.split("merged ")[1].split(" pairs")[0])
+    print(f"phase 7: cli resume: the resumed fit found {fitted} neurons; "
+          f"{merged} merged, 2 dropped; summary.json {summary2['n_neurons']}",
+          flush=True)
+    require(summary2["n_neurons"] == fitted - merged - 2,
+            f"cli resume with decisions: {summary2['n_neurons']} neurons, "
+            f"not {fitted} - {merged} - 2")
+
+    rdir, _, per_path["cli_batch"] = cli_run(
+        "1p --batch-frames 1000 --dff", tif, os.path.join(tmp, "cli_batch"),
+        ["--max-neurons", "192", "--batch-frames", "1000", "--dff"],
+        PATH_EXACT)
+    cli_score("batch", rdir, gt, "f1", 0.8)
+    os.remove(tif)
+
+    phase7c_consistency()
+    gt = simulate_movie(seed=13, H=256, W=256, T=2000, K=120, gSig=3.0,
+                        sn=0.06, bg_strength=0.5, min_dist=9.0,
+                        spike_rate=0.02)
+    tif = os.path.join(tmp, "movie_2p.tif")
+    write_tiff(tif, gt.Y)
+    flags = ["--preset", "2p", "--gsig", "3", "--gsiz", "13",
+             "--max-neurons", "192", "--dff"]
+    rdir, _, per_path["cli_2p_svd"] = cli_run(
+        "2p svd 256x256x2000", tif, os.path.join(tmp, "cli_2p"), flags,
+        PATH_2P, absent=("ring_stencil",))
+    cli_score("2p svd", rdir, gt, "recall", 0.75)
+    rdir, _, per_path["cli_2p_nmf"] = cli_run(
+        "2p --bg-model nmf", tif, os.path.join(tmp, "cli_nmf"),
+        flags + ["--bg-model", "nmf"], PATH_2P, absent=("ring_stencil",))
+    cli_score("2p nmf", rdir, gt, "recall", 0.0)
+    return per_path
+
+
+def phase7c_consistency():
+    """A 64x64x600 svd fit and its DF/F on the card and on the CPU: equal
+    n_active, footprints and traces matched at correlation >= 0.99, F0 of
+    matched neurons within 1e-4 relative; and DF/F of the card's state
+    computed on both devices, F0 within 1e-4 relative."""
+    gt = simulate_movie(seed=13, H=64, W=64, T=600, K=10, gSig=2.5,
+                        sn=0.06, bg_strength=0.5, min_dist=11.0,
+                        spike_rate=0.04)
+    params = CNMFEParams(
+        init=InitParams(gSig=2.5, gSiz=8, min_corr=0.8, min_pnr=8.0,
+                        max_neurons=30, seeds_per_round=16, max_rounds=5),
+        background=BackgroundParams(model="svd", rank=3),
+        merge=MergeParams(dmin=4.0))
+    out, states = {}, {}
+    for dev in (DEV, "cpu"):
+        model = CNMFE(params, device=dev)
+        st = model.fit(gt.Y, n_outer=1)
+        _, _, F0 = model.dff(gt.Y)
+        n = int(st.n_active())
+        states[str(dev)] = st
+        out[str(dev)] = (n, st.A[:n].cpu().numpy(), st.C[:n].cpu().numpy(),
+                         F0[:n, 0].cpu().numpy())
+    (n_g, A_g, C_g, F_g), (n_c, A_c, C_c, F_c) = out[str(DEV)], out["cpu"]
+    require(n_g == n_c > 0, f"2p n_active differs: cuda {n_g}, cpu {n_c}")
+    pairs = match_by_footprint(A_g, A_c)
+    a_corr = min(p[2] for p in pairs)
+    c_corr = min(float(np.corrcoef(C_g[i], C_c[j])[0, 1])
+                 for i, j, _ in pairs)
+    f0_rel = max(abs(F_g[i] - F_c[j]) / abs(F_c[j]) for i, j, _ in pairs)
+    # DF/F alone: the card's fitted state on both devices
+    Y = torch.as_tensor(gt.Y)
+    same = [extract_dff(Y.to(dev), state_from_numpy(
+        state_to_numpy(states[str(DEV)]), device=dev), params)[2].cpu()
+        for dev in (DEV, "cpu")]
+    same_rel = float(((same[0] - same[1]).abs() / same[1].abs()).max())
+    print(f"phase 7c: svd fit + DF/F cuda vs cpu on 64x64x600: n_active "
+          f"{n_g} == {n_c}; min footprint corr {a_corr:.5f}, min trace corr "
+          f"{c_corr:.5f} (>= 0.99); F0 of matched neurons max rel diff "
+          f"{f0_rel:.3e}, DF/F of one state on both devices F0 max rel diff "
+          f"{same_rel:.3e} (<= 1e-4)", flush=True)
+    require(a_corr >= 0.99 and c_corr >= 0.99,
+            "cuda and cpu svd fits disagree")
+    require(f0_rel <= 1e-4 and same_rel <= 1e-4,
+            "cuda and cpu DF/F baselines disagree")
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1361,8 +1556,9 @@ def main():
         per_path["stream"] = phase6_stream(tmp)
         per_path["batch"] = phase6b_batches()
         phase6c_stream_consistency(tmp)
+        per_path.update(phase7_cli(tmp))
 
-    # launches: the sum over the main-path runs of phases 4 to 6b
+    # launches: the sum over the main-path runs of phases 4 to 7
     launches = {k: sum(p[k] for p in per_path.values())
                 for k in cuda_build.KERNELS}
     print(f"launches per main-path run: {json.dumps(per_path)}", flush=True)

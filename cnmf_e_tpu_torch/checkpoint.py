@@ -94,6 +94,12 @@ def restore_state(path: str, K_max: int, H: int, W: int, T: int,
                               device=device),
             w0=torch.as_tensor(data["ring_w0"], dtype=torch.float32,
                                device=device)))
+    if "bg_b" in data:
+        st = st.replace(
+            b=torch.as_tensor(data["bg_b"], dtype=torch.float32,
+                              device=device),
+            f=torch.as_tensor(data["bg_f"], dtype=torch.float32,
+                              device=device))
     return st
 
 

@@ -4,7 +4,8 @@
 (the JAX ``CNMFEState`` fields, or a bundle written by
 ``cnmf_e_tpu/io/export.py``); ``state_to_numpy`` writes the same keys as
 that export (``ring_w``/``ring_w0`` for the ring weights) plus ``active``,
-for every slot, so a round trip is lossless. ``step_state_from_numpy`` and
+and the low-rank background as ``bg_b``/``bg_f``, for every slot, so a
+round trip is lossless. ``step_state_from_numpy`` and
 ``step_state_to_numpy`` do the same for the update step's ``StepState``.
 Both functions put the state on the card unless the caller passes
 ``device="cpu"``. ``params_from_dict`` builds the port's
@@ -36,8 +37,10 @@ def state_from_numpy(d: dict, device="cuda") -> CNMFEState:
     """Build a state on ``device`` from a dict of numpy arrays.
 
     Keys: A, C, C_raw, S, g, neuron_sn, b0; optional active (default: all
-    slots active, as in an export bundle), tags, and the ring weights as
-    ring_w/ring_w0 (export names) or W.w/W.w0 (JAX field names)."""
+    slots active, as in an export bundle), tags, the ring weights as
+    ring_w/ring_w0 (export names) or W.w/W.w0 (JAX field names), and the
+    low-rank background as bg_b/bg_f (export names) or b/f (JAX field
+    names)."""
     kw = {k: _f32(d[k], device) for k in _F32_KEYS}
     K = kw["A"].shape[0]
     active = d.get("active")
@@ -51,6 +54,10 @@ def state_from_numpy(d: dict, device="cuda") -> CNMFEState:
     w0 = d.get("ring_w0", d.get("W.w0"))
     if w is not None:
         kw["W"] = RingWeights(w=_f32(w, device), w0=_f32(w0, device))
+    b = d.get("bg_b", d.get("b"))
+    if b is not None:
+        kw["b"] = _f32(b, device)
+        kw["f"] = _f32(d.get("bg_f", d.get("f")), device)
     return CNMFEState(**kw)
 
 
@@ -63,6 +70,9 @@ def state_to_numpy(state: CNMFEState) -> dict:
     if state.W is not None:
         out["ring_w"] = state.W.w.detach().cpu().numpy()
         out["ring_w0"] = state.W.w0.detach().cpu().numpy()
+    if state.b is not None:
+        out["bg_b"] = state.b.detach().cpu().numpy()
+        out["bg_f"] = state.f.detach().cpu().numpy()
     return out
 
 

@@ -4,8 +4,7 @@ npz keys and dtypes).
 Reference: ``save_workspace`` / ``save_neurons`` / ``compress_results`` /
 ``obj2struct`` (``Sources2D.m:1796-1953``). Results save as a compressed
 .npz (canonical) and optionally a MATLAB-compatible .mat (via scipy.io) so
-downstream tooling built for the reference can consume them. The port's
-state has no low-rank ``b``/``f``, so no ``bg_b``/``bg_f`` keys are written.
+downstream tooling built for the reference can consume them.
 """
 
 from __future__ import annotations
@@ -39,6 +38,9 @@ def state_to_arrays(state: CNMFEState, compress: bool = True) -> dict:
     if state.W is not None:
         out["ring_w"] = _np(state.W.w)
         out["ring_w0"] = _np(state.W.w0)
+    if state.b is not None:
+        out["bg_b"] = _np(state.b)
+        out["bg_f"] = _np(state.f)
     if compress:
         # sparsify footprints/spikes like compress_results (Sources2D.m:1884)
         A = out["A"]

@@ -1,6 +1,6 @@
-"""Background update and evaluation, ring model (port of the ring branch of
-``cnmf_e_tpu/models/background.py``; reference
-``update_background_parallel.m``)."""
+"""Background update and evaluation: the ring model (1p) or the low-rank
+svd/nmf model (2p) (port of ``cnmf_e_tpu/models/background.py`` but its
+"local" model; reference ``update_background_parallel.m``)."""
 
 from __future__ import annotations
 
@@ -10,40 +10,50 @@ import torch
 
 from cnmf_e_tpu_torch.config import CNMFEParams
 from cnmf_e_tpu_torch.models.state import CNMFEState
+from cnmf_e_tpu_torch.ops.lowrank import fit_lowrank_model
 from cnmf_e_tpu_torch.ops.ring import (fit_ring_model,
                                        reconstruct_ring_background)
 
 
-def _check_ring(params: CNMFEParams) -> None:
-    if params.background.model != "ring":
-        raise NotImplementedError(
-            f"background model {params.background.model!r} is not ported")
+def _check_ported(params: CNMFEParams) -> None:
+    if params.background.model == "local":
+        raise NotImplementedError("background model 'local' is not ported")
 
 
 def update_background(Y: torch.Tensor, state: CNMFEState,
                       params: CNMFEParams,
                       sn_pix: Optional[torch.Tensor] = None) -> CNMFEState:
-    """Refit the ring background given the current (A, C). Y: (T, H, W)."""
-    _check_ring(params)
+    """Refit the background model given the current (A, C). Y: (T, H, W)."""
+    _check_ported(params)
     bp = params.background
-    weights, b0, _ = fit_ring_model(
-        Y, state.masked_A(), state.masked_C(), radius=bp.ring_radius,
-        W_old=state.W, sn=sn_pix, thresh_outlier=bp.thresh_outlier,
-        frame_cap_factor=bp.frame_cap_factor, ridge_eps=bp.ridge_eps,
-        ssub=bp.ssub)
-    return state.replace(W=weights, b0=b0)
+    if bp.model == "ring":
+        weights, b0, _ = fit_ring_model(
+            Y, state.masked_A(), state.masked_C(), radius=bp.ring_radius,
+            W_old=state.W, sn=sn_pix, thresh_outlier=bp.thresh_outlier,
+            frame_cap_factor=bp.frame_cap_factor, ridge_eps=bp.ridge_eps,
+            ssub=bp.ssub)
+        return state.replace(W=weights, b0=b0)
+    b, f, b0 = fit_lowrank_model(Y, state.masked_A(), state.masked_C(),
+                                 rank=bp.rank, mode=bp.model)
+    return state.replace(b=b, f=f, b0=b0)
 
 
 def background_of(Y: torch.Tensor, state: CNMFEState,
                   params: CNMFEParams) -> torch.Tensor:
     """The current background estimate B (T, H, W)."""
-    _check_ring(params)
-    if state.W is None:
-        return torch.broadcast_to(state.b0[None], Y.shape)
+    _check_ported(params)
     bp = params.background
-    return reconstruct_ring_background(
-        state.W, Y, state.masked_A(), state.masked_C(), state.b0,
-        radius=bp.ring_radius, ssub=bp.ssub)
+    if bp.model == "ring":
+        if state.W is None:
+            return torch.broadcast_to(state.b0[None], Y.shape)
+        return reconstruct_ring_background(
+            state.W, Y, state.masked_A(), state.masked_C(), state.b0,
+            radius=bp.ring_radius, ssub=bp.ssub)
+    if state.b is None:
+        return torch.broadcast_to(state.b0[None], Y.shape)
+    rank = state.b.shape[0]
+    return (state.f.T @ state.b.reshape(rank, -1)).reshape(Y.shape) \
+        + state.b0[None]
 
 
 def subtract_background(Y: torch.Tensor, state: CNMFEState,

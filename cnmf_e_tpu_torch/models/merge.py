@@ -1,7 +1,7 @@
 """Neuron merging (port of ``cnmf_e_tpu/models/merge.py`` for the
 dist_corr, high_corr and dist_only modes; reference
 ``merge_neurons_dist_corr.m``, ``merge_high_corr.m``,
-``merge_close_neighbors.m``).
+``merge_close_neighbors.m``), and the manual ``merge_pairs``.
 
 Pairwise statistics are (K, K) matmuls; a cluster is a connected component
 of the candidate graph; each cluster is refit rank-1 (alternating least
@@ -279,6 +279,24 @@ def _merge_with_adjacency(state: CNMFEState, params: CNMFEParams,
     if deconv and params.temporal.deconv.enabled:
         state = _redeconvolve(state, params, merged_mask)
     return state, n_merged
+
+
+def merge_pairs(state: CNMFEState, params: CNMFEParams, pairs,
+                deconv: bool = True) -> Tuple[CNMFEState, int]:
+    """Merge the given (i, j) slot pairs (reference: ``manual_merge`` /
+    ``manual_merge_multi_pairs``), the automated replacement for the
+    interactive flows. Pairs that chain form one cluster, refit into the
+    slot of its highest-energy member."""
+    K = state.K_max
+    adj = np.zeros((K, K), bool)
+    for i, j in pairs:
+        if not (0 <= i < K and 0 <= j < K):
+            raise ValueError(f"merge pair ({i}, {j}) is outside slots "
+                             f"0..{K - 1}")
+        adj[i, j] = adj[j, i] = True
+    energy = _merge_stats(state)[5][0].cpu().numpy()
+    return _merge_with_adjacency(state, params, adj, energy,
+                                 state.active.cpu().numpy(), deconv=deconv)
 
 
 def merge_neurons_seq(state: CNMFEState, params: CNMFEParams, modes,

@@ -20,6 +20,7 @@ from cnmf_e_tpu_torch.models.background import (background_of,
                                                 residual_movie,
                                                 subtract_background,
                                                 update_background)
+from cnmf_e_tpu_torch.models.dff import extract_dff
 from cnmf_e_tpu_torch.models.initialize import initialize_greedy
 from cnmf_e_tpu_torch.models.merge import merge_neurons, merge_neurons_seq
 from cnmf_e_tpu_torch.models.qc import remove_false_positives, tag_neurons
@@ -32,10 +33,11 @@ from cnmf_e_tpu_torch.utils.profiling import timed
 
 def check_ported(params: CNMFEParams) -> None:
     """Raise NotImplementedError for an option whose code path is not
-    ported yet (the port covers what ``CNMFEParams.preset_1p`` runs)."""
+    ported yet (the port covers what ``CNMFEParams.preset_1p`` and
+    ``preset_2p()`` run)."""
     sp, dp = params.spatial, params.temporal.deconv
     unported = {
-        "background.model": params.background.model != "ring",
+        "background.model": params.background.model == "local",
         "spatial.algorithm": sp.algorithm != "hals",
         "spatial.search_method": sp.search_method not in ("dilate", "none"),
         "temporal.decorrelate": params.temporal.decorrelate,
@@ -187,6 +189,14 @@ class CNMFE:
             run_log.snapshot("final", state)
         self.state = state
         return state
+
+    def dff(self, Y, window: Optional[int] = None, prctile: float = 50.0):
+        """(C_df, C_raw_df, F0) of the fitted state on the movie Y
+        (:func:`cnmf_e_tpu_torch.models.dff.extract_dff`)."""
+        if self.state is None:
+            raise RuntimeError("run fit() first")
+        return extract_dff(self._movie(Y), self.state, self.params,
+                           window=window, prctile=prctile)
 
     def background(self, Y) -> torch.Tensor:
         if self.state is None:

@@ -1,6 +1,7 @@
 """Quality control: per-neuron defect tags and false-positive removal
-(port of ``tag_neurons`` / ``remove_false_positives`` / ``_apply_keep``
-of ``cnmf_e_tpu/models/qc.py``; reference ``Sources2D.m:1683-1715,744-759``).
+(port of ``tag_neurons`` / ``remove_false_positives`` /
+``delete_neurons`` / ``_apply_keep`` of ``cnmf_e_tpu/models/qc.py``;
+reference ``Sources2D.m:1683-1715,744-759``).
 The ``classify_components`` criterion (``qc.classify_cl_thr > 0`` with an
 active-pixel mask) is not ported."""
 
@@ -42,6 +43,20 @@ def remove_false_positives(state: CNMFEState, params: CNMFEParams,
         raise NotImplementedError("classify_components QC is not ported")
     state = tag_neurons(state, params)
     return _apply_keep(state, state.active & (state.tags == 0))
+
+
+def delete_neurons(state: CNMFEState, indices) -> CNMFEState:
+    """Deactivate neurons by slot index (reference ``Sources2D.delete``,
+    ``Sources2D.m:762-814``; also the consumer of the HTML report's
+    ``decisions.json`` rejected list, ``utils/report.py``)."""
+    idx = torch.as_tensor(indices, dtype=torch.long,
+                          device=state.active.device).reshape(-1)
+    K = state.K_max
+    if idx.numel() and not bool(((idx >= 0) & (idx < K)).all()):
+        raise ValueError(f"slot indices outside 0..{K - 1}: {indices}")
+    drop = torch.zeros_like(state.active)
+    drop[idx] = True
+    return _apply_keep(state, state.active & ~drop)
 
 
 def _apply_keep(state: CNMFEState, keep: torch.Tensor) -> CNMFEState:

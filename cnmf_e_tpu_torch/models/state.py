@@ -25,7 +25,8 @@ class RingWeights:
 
 @dataclass
 class CNMFEState:
-    """Factorization state: Y ~= A C + B, B from the ring model."""
+    """Factorization state: Y ~= A C + B, B from the ring model or the
+    low-rank (svd/nmf) one."""
 
     A: torch.Tensor            # (K_max, H, W) spatial footprints (>= 0)
     C: torch.Tensor            # (K_max, T) denoised traces
@@ -35,7 +36,11 @@ class CNMFEState:
     g: torch.Tensor            # (K_max, p) AR coefficients per neuron
     neuron_sn: torch.Tensor    # (K_max,) per-trace noise sigma
     b0: torch.Tensor           # (H, W) constant background
+    # ring background (1p): per-pixel ring weights; None for low-rank mode
     W: Optional[RingWeights] = None
+    # low-rank background (2p): B = b f + b0
+    b: Optional[torch.Tensor] = None      # (rank, H, W)
+    f: Optional[torch.Tensor] = None      # (rank, T)
     tags: Optional[torch.Tensor] = None   # (K_max,) int32 QC bitmask
 
     def replace(self, **kw) -> "CNMFEState":

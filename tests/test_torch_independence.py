@@ -17,7 +17,7 @@ from cnmf_e_tpu import config as jax_config
 from cnmf_e_tpu.native import connected_components as jax_cc
 from cnmf_e_tpu.utils import metrics as jax_metrics
 from cnmf_e_tpu.utils import simulate as jax_simulate
-from cnmf_e_tpu_torch import checkpoint, config, convert
+from cnmf_e_tpu_torch import checkpoint, config, convert, run
 from cnmf_e_tpu_torch.models.batch import fit_batches
 from cnmf_e_tpu_torch.models.merge import connected_components
 from cnmf_e_tpu_torch.models.pipeline import CNMFE
@@ -122,12 +122,16 @@ def test_entry_points_default_to_the_card():
     for fn in (convert.state_from_numpy, convert.step_state_from_numpy,
                fit_streaming, fit_batches, checkpoint.restore_state):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    # the command line: --device defaults to the card
+    assert run.parse_args(["movie.tif"]).device == "cuda"
 
 
-# the port's copies of pure-numpy modules of the JAX package
+# the port's copies of pure-numpy modules of the JAX package, and ports
+# that keep a JAX module's public functions
 COPIES = ["io/tiff.py", "io/avi.py", "io/movie.py", "io/store.py",
           "io/export.py", "checkpoint.py", "utils/profiling.py",
-          "ops/detrend.py", "utils/simulate.py"]
+          "ops/detrend.py", "utils/simulate.py", "ops/kde.py",
+          "utils/viz.py", "utils/report.py", "models/dff.py", "run.py"]
 
 
 @pytest.mark.parametrize("path", COPIES)

@@ -138,6 +138,12 @@ def test_port_never_imports_jax():
         import cnmf_e_tpu_torch.io.export
         import cnmf_e_tpu_torch.checkpoint
         import cnmf_e_tpu_torch.utils.profiling
+        import cnmf_e_tpu_torch.run
+        import cnmf_e_tpu_torch.models.dff
+        import cnmf_e_tpu_torch.ops.lowrank
+        import cnmf_e_tpu_torch.ops.kde
+        import cnmf_e_tpu_torch.utils.viz
+        import cnmf_e_tpu_torch.utils.report
         assert "jax" not in sys.modules, "jax was imported"
         jax_pkg = sorted(m for m in sys.modules
                          if m.split(".")[0] == "cnmf_e_tpu")
@@ -163,14 +169,31 @@ def test_kernel_wrappers_take_plain_path_only_for_cpu_tensors():
     assert not cuda_build.ENTRY_CALLS
 
 
-def test_unported_options_raise():
+UNPORTED = {
+    "local_background": lambda p: p.replace(background=dataclasses.replace(
+        p.background, model="local")),
+    "decorrelate": lambda p: p.replace(temporal=dataclasses.replace(
+        p.temporal, decorrelate=True)),
+    "ar2": lambda p: p.replace(temporal=dataclasses.replace(
+        p.temporal, deconv=dataclasses.replace(p.temporal.deconv,
+                                               model="ar2"))),
+}
+
+
+@pytest.mark.parametrize("option", sorted(UNPORTED))
+def test_unported_options_raise(option):
+    p = UNPORTED[option](params_from_dict(dataclasses.asdict(_params())))
+    with pytest.raises(NotImplementedError):
+        CNMFE(p, device="cpu").fit(np.zeros((20, 8, 8), np.float32))
+
+
+@pytest.mark.parametrize("model", ["svd", "nmf"])
+def test_lowrank_background_options_run(model):
+    """Ported with the 2p preset: svd and nmf backgrounds fit (here an
+    empty movie, where no neuron is found)."""
     p = params_from_dict(dataclasses.asdict(_params()))
-    with pytest.raises(NotImplementedError):
-        CNMFE(p.replace(background=dataclasses.replace(
-            p.background, model="svd")), device="cpu").fit(
-                np.zeros((20, 8, 8), np.float32))
-    with pytest.raises(NotImplementedError):
-        CNMFE(p.replace(temporal=dataclasses.replace(
-            p.temporal, deconv=dataclasses.replace(p.temporal.deconv,
-                                                   model="ar2"))),
-              device="cpu").fit(np.zeros((20, 8, 8), np.float32))
+    st = CNMFE(p.replace(background=dataclasses.replace(
+        p.background, model=model, rank=2)), device="cpu").fit(
+            np.random.default_rng(0).random((20, 8, 8), np.float32))
+    assert st.b.shape == (2, 8, 8) and st.f.shape == (2, 20)
+    assert bool(torch.isfinite(st.b0).all())
