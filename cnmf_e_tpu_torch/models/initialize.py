@@ -295,7 +295,9 @@ def initialize_greedy(Y: torch.Tensor, params: CNMFEParams,
     if min_pnr is None:
         min_pnr = ip.min_pnr
     if state is None:
-        state = empty_state(K_max, H, W, T, p=1, device=dev)
+        # the AR order of the trace model sets the width of g
+        p_ar = 2 if params.temporal.deconv.model in ("ar2", "exp2") else 1
+        state = empty_state(K_max, H, W, T, p=p_ar, device=dev)
     else:
         K_max = state.K_max
     Y_work = Y.to(torch.float32)

@@ -33,16 +33,11 @@ from cnmf_e_tpu_torch.utils.profiling import timed
 
 def check_ported(params: CNMFEParams) -> None:
     """Raise NotImplementedError for an option whose code path is not
-    ported yet (the port covers what ``CNMFEParams.preset_1p`` and
-    ``preset_2p()`` run)."""
-    sp, dp = params.spatial, params.temporal.deconv
+    ported yet: the local background and the ellipse search."""
     unported = {
         "background.model": params.background.model == "local",
-        "spatial.algorithm": sp.algorithm != "hals",
-        "spatial.search_method": sp.search_method not in ("dilate", "none"),
-        "temporal.decorrelate": params.temporal.decorrelate,
-        "temporal.deconv": dp.enabled and (dp.model, dp.method)
-        != ("ar1", "foopsi"),
+        "spatial.search_method":
+            params.spatial.search_method == "ellipse",
     }
     bad = [name for name, hit in unported.items() if hit]
     if bad:

@@ -1,6 +1,8 @@
-"""Spatial (A) update, HALS on dilated search locations (port of the
-``algorithm="hals"`` path of ``cnmf_e_tpu/models/spatial.py``; reference
-``update_spatial_parallel.m``)."""
+"""Spatial (A) update on search-location-masked supports (port of
+``cnmf_e_tpu/models/spatial.py`` without the ellipse search; reference
+``update_spatial_parallel.m``): HALS, HALS with the 3-sigma pixel gate of
+``HALS_spatial_thresh.m``, per-pixel NNLS, or the noise-constrained
+nonnegative lasso in the role of ``lars_regression_noise.m``."""
 
 from __future__ import annotations
 
@@ -14,18 +16,21 @@ from cnmf_e_tpu_torch.ops.hals import hals_spatial
 from cnmf_e_tpu_torch.ops.morphology import (circular_constraint,
                                              connectivity_constraint,
                                              search_locations_dilate)
+from cnmf_e_tpu_torch.ops.nnls import nnls_pixels
 
 
 def update_spatial(Ysignal: torch.Tensor, state: CNMFEState,
                    params: CNMFEParams,
                    sn_pix: Optional[torch.Tensor] = None) -> CNMFEState:
     """Update footprints given traces. Ysignal: (T, H, W) = Y - B.
-    ``sn_pix`` is accepted for the JAX signature; the HALS path does not
-    read it."""
+
+    ``sn_pix``: optional (H, W) per-pixel noise sigma, the noise floor of
+    ``hals_thresh`` and ``lars``; without it the residual's standard
+    deviation stands in, which overestimates the floor while signal is
+    unmodelled."""
     sp = params.spatial
-    if sp.algorithm != "hals" or sp.search_method not in ("dilate", "none"):
-        raise NotImplementedError(
-            f"spatial {sp.algorithm}/{sp.search_method} is not ported")
+    if sp.search_method == "ellipse":
+        raise NotImplementedError("the ellipse search is not ported")
     T, H, W = Ysignal.shape
     K = state.K_max
     A = state.masked_A()
@@ -38,7 +43,26 @@ def update_spatial(Ysignal: torch.Tensor, state: CNMFEState,
     Yd = Ysignal.reshape(T, H * W).T                 # (d, T)
     Ad = A.reshape(K, H * W).T                       # (d, K)
     Md = masks.reshape(K, H * W).T
-    Ad = hals_spatial(Yd, Ad, C, mask=Md, n_iter=sp.n_iter)
+    if sp.algorithm in ("hals", "hals_thresh"):
+        Ad = hals_spatial(Yd, Ad, C, mask=Md, n_iter=sp.n_iter)
+        if sp.algorithm == "hals_thresh":
+            # zero a_dk where a_dk ||C_k - mean|| < 3 sn_d
+            # (HALS_spatial_thresh.m:37,51)
+            Cc = C - C.mean(dim=-1, keepdim=True)
+            cnorm = torch.sqrt((Cc * Cc).sum(dim=-1))
+            sn_d = (sn_pix.reshape(-1, 1) if sn_pix is not None
+                    else (Yd - Ad @ C).std(dim=-1, correction=0,
+                                           keepdim=True))
+            Ad = torch.where(Ad * cnorm[None, :] > 3.0 * sn_d, Ad, 0.0)
+    elif sp.algorithm == "nnls":
+        Ad = nnls_pixels(C, Yd, A0=Ad, mask=Md, n_iter=20 * sp.n_iter)
+    elif sp.algorithm == "lars":
+        from cnmf_e_tpu_torch.models.cnmf2p import lasso_noise_constrained
+        sn_d = (sn_pix.reshape(-1) if sn_pix is not None
+                else (Yd - Ad @ C).std(dim=-1, correction=0))
+        Ad = lasso_noise_constrained(C, Yd, sn_d, Md)
+    else:
+        raise ValueError(f"unknown spatial algorithm {sp.algorithm!r}")
     A_new = post_process_spatial(Ad.T.reshape(K, H, W), params)
     return state.replace(A=A_new * state.active[:, None, None])
 

@@ -281,7 +281,10 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
     if snapshot_path is not None and os.path.exists(snapshot_path):
         with np.load(snapshot_path) as z:
             A_r = np.asarray(z["A"], np.float32)
-            p_ar = int(z["g"].shape[1]) if "g" in z.files else 1
+            # the AR order from the saved g, else from the deconv model
+            p_ar = (int(z["g"].shape[1]) if "g" in z.files
+                    else 2 if params.temporal.deconv.model in ("ar2", "exp2")
+                    else 1)
             state = empty_state(A_r.shape[0], H, W, 1, p=p_ar,
                                 device=device).replace(
                 A=tensor(A_r), active=tensor(z["active"], torch.bool))
@@ -303,10 +306,13 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
                 resume_Ymean = tensor(z["Ymean"])
             if resume_mid:
                 Cj = tensor(z["C"])
-                # S was not saved: the inverse AR(1) recurrence of the
+                # S was not saved: the inverse AR recurrence of the
                 # deconvolved C (zeros would trip the QC no-spikes tag)
                 s_rec = Cj - state.g[:, :1] * torch.nn.functional.pad(
                     Cj[:, :-1], (1, 0))
+                if p_ar == 2:
+                    s_rec = s_rec - state.g[:, 1:2] * \
+                        torch.nn.functional.pad(Cj[:, :-2], (2, 0))
                 state = state.replace(C=Cj, C_raw=tensor(z["C_raw"]),
                                       S=torch.clamp(s_rec, min=0.0))
         log(lambda state=state: f"resumed {int(state.n_active())} neurons "

@@ -1,6 +1,7 @@
 """Temporal (C) update with batched deconvolution (port of
-``cnmf_e_tpu/models/temporal.py`` without ``decorrelate``; reference
-``update_temporal_parallel.m``, ``HALS_temporal.m:58-107``)."""
+``cnmf_e_tpu/models/temporal.py``; reference
+``update_temporal_parallel.m``, ``HALS_temporal.m:58-107`` and, with
+``decorrelate``, ``decorrTemporal.m``)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from cnmf_e_tpu_torch.models.state import CNMFEState
 from cnmf_e_tpu_torch.ops.hals import hals_temporal
 from cnmf_e_tpu_torch.ops.noise import noise_psd
 from cnmf_e_tpu_torch.ops.oasis import deconvolve
+from cnmf_e_tpu_torch.ops.spikes import decorr_temporal
 from cnmf_e_tpu_torch.ops.stats import submedian_mean
 
 
@@ -18,8 +20,6 @@ def update_temporal(Ysignal: torch.Tensor, state: CNMFEState,
                     params: CNMFEParams) -> CNMFEState:
     """Update traces given footprints. Ysignal: (T, H, W) = Y - B."""
     tp = params.temporal
-    if tp.decorrelate:
-        raise NotImplementedError("temporal.decorrelate is not ported")
     T, H, W = Ysignal.shape
     K = state.K_max
     A = state.masked_A()
@@ -43,6 +43,9 @@ def update_temporal(Ysignal: torch.Tensor, state: CNMFEState,
         C_new = C_raw - C_raw.amin(dim=-1, keepdim=True)
         S_new = torch.zeros_like(C_raw)
         g_new = state.g
+    if tp.decorrelate and tp.deconv.enabled:
+        C_new = decorr_temporal(C_new, S_new, A, g_new, sn,
+                                gSiz=float(params.init.gSiz))
     act = state.active[:, None]
     return state.replace(
         C=torch.where(act, C_new, 0.0),

@@ -93,17 +93,22 @@ def hals_spatial(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
 
 
 def hals_temporal(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
-                  n_iter: int = 5, active: Optional[torch.Tensor] = None
+                  n_iter: int = 5, active: Optional[torch.Tensor] = None,
+                  colored: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Update C given A: c_k <- c_k + (U_k - V_k C) / aa_k (no
     deconvolution). Y: (d, T); A: (d, K); C: (K, T). Returns
     (C_raw, aa = diag(A^T A)).
 
-    Neurons are ordered by a greedy colouring of the footprint overlap
-    graph (disjoint footprints give exact-zero V entries); the JAX
-    package's ``colored=True``."""
+    With ``colored`` neurons are ordered by a greedy colouring of the
+    footprint overlap graph (disjoint footprints give exact-zero V
+    entries); otherwise they update in order, 16 rows a step, as in the
+    JAX package's default."""
     U = A.T @ Y                                             # (K, T)
     V = A.T @ A                                             # (K, K)
+    if not colored:
+        return (hals_temporal_sweeps(U, V, C, n_iter=n_iter, active=active),
+                torch.diagonal(V))
     K = V.shape[0]
     adj = (V != 0) & ~torch.eye(K, dtype=torch.bool, device=V.device)
     order, inverse, sched = _colored(adj)

@@ -131,7 +131,9 @@ def test_entry_points_default_to_the_card():
 COPIES = ["io/tiff.py", "io/avi.py", "io/movie.py", "io/store.py",
           "io/export.py", "checkpoint.py", "utils/profiling.py",
           "ops/detrend.py", "utils/simulate.py", "ops/kde.py",
-          "utils/viz.py", "utils/report.py", "models/dff.py", "run.py"]
+          "utils/viz.py", "utils/report.py", "models/dff.py", "run.py",
+          "ops/ar.py", "ops/nnls.py", "ops/onnls.py", "ops/oasis.py",
+          "ops/spikes.py", "models/cnmf2p.py"]
 
 
 @pytest.mark.parametrize("path", COPIES)
@@ -151,6 +153,27 @@ def test_copy_has_the_jax_packages_public_functions(path):
         # the port's functions may add a trailing device argument
         if args is not None:
             assert ours[name][:len(args)] == args, name
+
+
+# the modules of the 2p slice: the import scan above covers each
+SLICE_2P = ["ops/ar.py", "ops/nnls.py", "ops/onnls.py", "ops/oasis.py",
+            "ops/spikes.py", "ops/mcem.py", "ops/mcmc.py",
+            "models/cnmf2p.py", "models/spatial.py", "models/temporal.py"]
+
+
+@pytest.mark.parametrize("path", SLICE_2P)
+def test_the_import_scan_covers_the_2p_modules(path):
+    assert os.path.join("cnmf_e_tpu_torch", path) in PORT_FILES
+
+
+def test_geweke_copy_agrees():
+    """The MCMC convergence z-score is host numpy in both packages; the
+    port keeps its own copy."""
+    from cnmf_e_tpu.ops.mcmc import _geweke_z as jax_geweke
+    from cnmf_e_tpu_torch.ops.mcmc import _geweke_z
+    counts = np.random.default_rng(3).poisson(4.0, (501, 6))
+    counts[:, 2] = 5                                   # zero variance
+    np.testing.assert_array_equal(_geweke_z(counts), jax_geweke(counts))
 
 
 @pytest.mark.parametrize("fpb", [250, 1000])

@@ -172,6 +172,12 @@ def test_kernel_wrappers_take_plain_path_only_for_cpu_tensors():
 UNPORTED = {
     "local_background": lambda p: p.replace(background=dataclasses.replace(
         p.background, model="local")),
+    "ellipse_search": lambda p: p.replace(spatial=dataclasses.replace(
+        p.spatial, search_method="ellipse")),
+}
+# options that raised until the port took them (temporal.decorrelate and
+# the AR(2) deconvolution): they now run
+PORTED = {
     "decorrelate": lambda p: p.replace(temporal=dataclasses.replace(
         p.temporal, decorrelate=True)),
     "ar2": lambda p: p.replace(temporal=dataclasses.replace(
@@ -185,6 +191,15 @@ def test_unported_options_raise(option):
     p = UNPORTED[option](params_from_dict(dataclasses.asdict(_params())))
     with pytest.raises(NotImplementedError):
         CNMFE(p, device="cpu").fit(np.zeros((20, 8, 8), np.float32))
+
+
+@pytest.mark.parametrize("option", sorted(PORTED))
+def test_formerly_unported_options_run(option):
+    p = PORTED[option](params_from_dict(dataclasses.asdict(_params())))
+    st = CNMFE(p, device="cpu").fit(
+        np.random.default_rng(0).random((20, 8, 8), np.float32))
+    assert st.g.shape[1] == (2 if option == "ar2" else 1)
+    assert bool(torch.isfinite(st.C).all())
 
 
 @pytest.mark.parametrize("model", ["svd", "nmf"])
