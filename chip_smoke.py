@@ -16,7 +16,8 @@ Phases (each fails the script when its check fails):
      and heights off the tiles, T = 1, 7, 2001, a field of view narrower
      than the ring, radii 1 to 16 and 6.5), the banded products also
      against K6; K6 also at the fit's own shapes (the 128x128 coarse
-     grid, radius 9, with and without the intercept); torch.sparse.mm of
+     grid, radius 9, with and without the intercept, and with the local
+     background's uniform annulus weights); torch.sparse.mm of
      the ring matrix timed beside the ring kernels as the library
      yardstick, each kernel's ratio to it and to its bound printed; the OASIS
      kernels K2 -> K3 -> K4 at both launch shapes of the fit (K = 64 and
@@ -80,8 +81,22 @@ Phases (each fails the script when its check fails):
      traces), each family's median wall; 8d at 64x64x600 the spatial
      algorithms hals_thresh, nnls and lars and temporal.decorrelate on
      the card and on the CPU (correlations >= 0.99), and mcmc_spikes on
-     planted spikes on the card.
-No plain kernel version may run on the paths of phases 4 to 8, and
+     planted spikes on the card;
+  9. the local background and the ellipse search: 9a phase 4's movie
+     and parameters with background.model="local" and
+     spatial.search_method="ellipse" (warm-up fit, then a timed fit with
+     stage seconds, local_background's own seconds and peak memory), K1,
+     the OASIS solve entry and K6 launched, F1 >= 0.8; 9b the same
+     options on phase 3's movie on the card and on the CPU must agree;
+     9c on 9a's state, card against CPU, each timed: order_neurons for
+     every key (equal permutations wherever the keys are distinct),
+     apply_order, remove_false_positives with an active-pixel mask and
+     classify_cl_thr = 0.8, the three merge candidate graphs, the ellipse
+     masks and threshold_components, local_correlation_projected (also
+     against the full correlation image), hals_nmf (K1 launched),
+     kmeans_pp and sparse_nmf_init from the same generator, and
+     pair_neurons against the planted neurons.
+No plain kernel version may run on the paths of phases 4 to 9, and
 their OASIS kernels must launch through the solve entry.
 The line before the last holds one JSON object with the per-kernel
 results; the last line is {"ok": true, "device": {...}}.
@@ -120,7 +135,9 @@ from cnmf_e_tpu_torch.convert import (  # noqa: E402
 from cnmf_e_tpu_torch.io.tiff import write_tiff  # noqa: E402
 from cnmf_e_tpu_torch.models import cnmf2p  # noqa: E402
 from cnmf_e_tpu_torch.models.batch import fit_batches  # noqa: E402
+from cnmf_e_tpu_torch.models import background, merge, qc  # noqa: E402
 from cnmf_e_tpu_torch.models.dff import extract_dff  # noqa: E402
+from cnmf_e_tpu_torch.models.pairing import pair_neurons  # noqa: E402
 from cnmf_e_tpu_torch.models.pipeline import CNMFE  # noqa: E402
 from cnmf_e_tpu_torch.models.streaming import fit_streaming  # noqa: E402
 from cnmf_e_tpu_torch.models.state import RingWeights  # noqa: E402
@@ -130,13 +147,19 @@ from cnmf_e_tpu_torch.ops.ar import (ar_kernel,  # noqa: E402
                                      estimate_time_constant)
 from cnmf_e_tpu_torch.ops.coloring import (  # noqa: E402
     class_step_schedule, greedy_color, overlap_adjacency)
+from cnmf_e_tpu_torch.ops.corr import (  # noqa: E402
+    correlation_image, local_correlation_projected)
+from cnmf_e_tpu_torch.ops.hals import hals_nmf  # noqa: E402
+from cnmf_e_tpu_torch.ops.lowrank import (  # noqa: E402
+    kmeans_pp, sparse_nmf_init)
 from cnmf_e_tpu_torch.ops.morphology import (  # noqa: E402
-    search_locations_dilate)
+    search_locations_dilate, search_locations_ellipse, threshold_components)
 from cnmf_e_tpu_torch.ops.mcmc import mcmc_spikes  # noqa: E402
 from cnmf_e_tpu_torch.ops.noise import noise_psd  # noqa: E402
 from cnmf_e_tpu_torch.ops.oasis import deconvolve  # noqa: E402
 from cnmf_e_tpu_torch.ops.oasis_kernels import pass1_input  # noqa: E402
-from cnmf_e_tpu_torch.ops.ring import apply_ring  # noqa: E402
+from cnmf_e_tpu_torch.ops.ring import (  # noqa: E402
+    _neighbor_index as ring_neighbor_index, apply_ring)
 from cnmf_e_tpu_torch.parallel.step import (  # noqa: E402
     make_bg_projection, make_update_step)
 
@@ -936,9 +959,10 @@ def phase2_ring(H=256, W=256, T=2000):
 def phase2_ring_fit_grid(H=128, W=128, T=2000, radius=9):
     """K6 at the shapes CNMFE.fit gives it on the 256x256x2000 movie:
     preset_1p's ssub=2 coarse grid (radius 18 / 2), through the dispatching
-    apply_ring with the intercept (reconstruct_ring_background) and without
-    it (the outlier clamp of fit_ring_model), timed beside torch.sparse.mm
-    of the ring matrix."""
+    apply_ring with the intercept (reconstruct_ring_background), without
+    it (the outlier clamp of fit_ring_model) and with the local
+    background's uniform annulus weights, timed beside torch.sparse.mm of
+    the ring matrix."""
     X, wts = ring_problem(T, H, W, radius, seed=2)
     R = wts.w.shape[1]
     cases = []
@@ -949,6 +973,18 @@ def phase2_ring_fit_grid(H=128, W=128, T=2000, radius=9):
             f"fit grid, intercept={intercept}", X, w, H, W, radius,
             apply=lambda: apply_ring(wts, X, H, W, radius,
                                      include_intercept=intercept)))
+    # the local background's annulus average: valid / n_valid, no intercept
+    _, valid = ring_neighbor_index(H, W, ring_kernels.ring_offsets(radius))
+    unif = torch.as_tensor(valid / np.maximum(valid.sum(1, keepdims=True), 1),
+                           dtype=torch.float32, device=DEV)
+    w = RingWeights(w=unif, w0=torch.zeros(H * W, device=DEV))
+    cases.append(stencil_case(
+        "fit grid, local background's uniform weights", X, w, H, W, radius,
+        apply=lambda: apply_ring(w, X, H, W, radius,
+                                 include_intercept=False)))
+    require(cases[-1]["bit_identical"], "ring_stencil with the local "
+            "background's uniform weights is not bit-identical to its "
+            "plain version")
     times = ring_times(
         {"ring_stencil": lambda: ring_kernels.apply_ring_stencil(
             wts.w, wts.w0, X, H, W, radius)},
@@ -1911,6 +1947,294 @@ def phase8_2p():
     return per_path
 
 
+# ------------------------------------------------------------------ #
+# phase 9: the local background and the ellipse search, and the QC,
+# ordering, pairing and init utilities
+# ------------------------------------------------------------------ #
+def local_ellipse(params):
+    """``params`` with the local background and the ellipse search."""
+    return params.replace(
+        background=dataclasses.replace(params.background, model="local"),
+        spatial=dataclasses.replace(params.spatial, search_method="ellipse"))
+
+
+def phase9a_local_ellipse():
+    """Phase 4's movie and parameters with background.model="local" and
+    spatial.search_method="ellipse" (warm-up fit, then a timed fit with a
+    StageTimer): K1, the OASIS solve entry and K6 launched, no plain
+    version called, F1 >= 0.8. Returns (launches, state, gt, params)."""
+    gt, params = fit_problem()
+    params = local_ellipse(params)
+    Y = torch.as_tensor(gt.Y, device=DEV)
+    CNMFE(params, device=DEV).fit(Y, n_outer=2)             # warm-up
+    torch.cuda.synchronize()
+    timer = StageTimer(DEV)
+    torch.cuda.reset_peak_memory_stats(DEV)
+    with stage_calls(background, "local_background", timer,
+                     "local_background"), \
+            main_path() as launches:
+        t0 = time.perf_counter()
+        state = CNMFE(params, device=DEV).fit(Y, n_outer=2, timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(DEV)
+    solves = cuda_build.ENTRY_CALLS.get("oasis_solve_launch", 0)
+    n = int(state.n_active())
+    A = state.A[:n].cpu().numpy()
+    C = state.C[:n].cpu().numpy()
+    finite = all(bool(torch.isfinite(getattr(state, k)).all())
+                 for k in ("A", "C", "C_raw", "S", "b0")) and \
+        bool(torch.isfinite(state.W.w).all())
+    f1 = detection_f1(A, gt.A)
+    corr = trace_corr(C, gt.C, f1["matches"])
+    med = float(np.median(corr)) if len(corr) else 0.0
+    lb = timer.times.get("local_background", 0.0)
+    print(f"phase 9a: CNMFE.fit preset_1p, background.model='local', "
+          f"spatial.search_method='ellipse', 256x256x2000 K_max=192 "
+          f"n_outer=2: wall {wall:.3f} s, n_active {n}, F1 {f1['f1']:.4f} "
+          f"(precision {f1['precision']:.4f}, recall {f1['recall']:.4f}), "
+          f"median matched trace corr {med:.4f}, peak memory "
+          f"{peak / 2**30:.3f} GiB, finite {finite}; K1 launches "
+          f"{launches['hals_sweeps']}, solve-entry calls {solves}, K6 "
+          f"launches {launches['ring_stencil']}; local_background "
+          f"{timer.counts.get('local_background', 0)} calls {lb:.3f} s = "
+          f"{lb / wall:.3f} of the wall", flush=True)
+    print(f"phase 9a: stage seconds (StageTimer; background holds "
+          f"local_background, the other stages its predictions) "
+          f"{stage_line(timer)}; launches {json.dumps(launches)}", flush=True)
+    check_path(launches, PATH_EXACT, "local + ellipse fit")
+    require(solves > 0, "the local + ellipse fit made no OASIS solve")
+    require(finite, "the local + ellipse fit gave non-finite values")
+    require(f1["f1"] >= 0.8, f"local + ellipse F1 {f1['f1']:.4f} < 0.8")
+    return launches, state, gt, params
+
+
+def phase9b_consistency():
+    """Phase 3's movie with the local background and the ellipse search on
+    the card and on the CPU: the same neurons, footprint and trace
+    correlation >= 0.99."""
+    gt = simulate_movie(seed=11, H=64, W=64, T=600, K=10, gSig=2.5,
+                        sn=0.08, bg_strength=0.8, min_dist=12.0,
+                        spike_rate=0.04)
+    params = local_ellipse(CNMFEParams(
+        init=InitParams(gSig=2.5, gSiz=8, min_corr=0.8, min_pnr=8.0,
+                        max_neurons=40, seeds_per_round=16, max_rounds=6),
+        background=BackgroundParams(model="ring", ring_radius=9),
+        merge=MergeParams(dmin=4.0)))
+    out = []
+    for dev in (DEV, "cpu"):
+        st = CNMFE(params, device=dev).fit(gt.Y, n_outer=2)
+        n = int(st.n_active())
+        out.append((n, st.A[:n].cpu().numpy(), st.C[:n].cpu().numpy(),
+                    st.b0.cpu().numpy()))
+    (n_g, A_g, C_g, b_g), (n_c, A_c, C_c, b_c) = out
+    require(n_g == n_c, f"local + ellipse n_active differs: cuda {n_g}, "
+            f"cpu {n_c}")
+    pairs = match_by_footprint(A_g, A_c)
+    a_corr = min(p[2] for p in pairs)
+    c_corr = min(float(np.corrcoef(C_g[i], C_c[j])[0, 1])
+                 for i, j, _ in pairs)
+    b_rel = float(np.abs(b_g - b_c).max() / np.abs(b_c).max())
+    f1 = detection_f1(A_g, gt.A)["f1"]
+    print(f"phase 9b: local + ellipse cuda vs cpu fit on 64x64x600: "
+          f"n_active {n_g} == {n_c}, F1 {f1:.4f}; min footprint corr "
+          f"{a_corr:.5f}, min trace corr {c_corr:.5f} (>= 0.99); b0 max "
+          f"difference {b_rel:.3e} of its scale", flush=True)
+    require(a_corr >= 0.99 and c_corr >= 0.99,
+            "local + ellipse cuda and cpu fits disagree")
+
+
+def ellipse_r2(A: np.ndarray, dist=3.0, lo=3.0, hi=8.0) -> np.ndarray:
+    """search_locations_ellipse's r2 in float64 numpy (the JAX package's
+    eigh form), to tell a boundary tie from a disagreement."""
+    A = A.astype(np.float64)
+    K, H, W = A.shape
+    yy, xx = np.mgrid[0:H, 0:W]
+    mass = A.sum(axis=(1, 2)) + 1e-12
+    cy = (A * yy).sum(axis=(1, 2)) / mass
+    cx = (A * xx).sum(axis=(1, 2)) / mass
+    dy = yy[None] - cy[:, None, None]
+    dx = xx[None] - cx[:, None, None]
+    syx = (A * dx * dy).sum((1, 2))
+    cov = np.stack([np.stack([(A * dy * dy).sum((1, 2)), syx], -1),
+                    np.stack([syx, (A * dx * dx).sum((1, 2))], -1)], -2)
+    ev, V = np.linalg.eigh(cov / mass[:, None, None])
+    ax = np.clip(np.sqrt(np.maximum(ev, 1e-6)) * dist, lo, hi)
+    p0 = V[:, 0, 0, None, None] * dy + V[:, 1, 0, None, None] * dx
+    p1 = V[:, 0, 1, None, None] * dy + V[:, 1, 1, None, None] * dx
+    return (p0 / ax[:, 0, None, None]) ** 2 + (p1 / ax[:, 1, None, None]) ** 2
+
+
+def to_cpu(x):
+    """A CPU copy of a tensor or of a state's tensors."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: to_cpu(getattr(x, f.name))
+            for f in dataclasses.fields(x)})
+    return x
+
+
+def card_and_cpu(what: str, fn, *args):
+    """``fn`` on the card's arguments and on their CPU copies; prints the
+    card's median wall of 3 runs and the CPU's wall of one. Returns
+    (card, cpu)."""
+    cpu_args = [to_cpu(a) for a in args]
+    walls = {}
+    for dev, a, reps in (("cuda", args, 3), ("cpu", cpu_args, 1)):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        walls[dev] = (out, statistics.median(times))
+    print(f"phase 9c: {what}: card {walls['cuda'][1] * 1e3:.3f} ms (median "
+          f"wall of 3), cpu {walls['cpu'][1] * 1e3:.3f} ms", flush=True)
+    return walls["cuda"][0], walls["cpu"][0]
+
+
+ORDER_KEYS = ("snr", "pnr", "energy", "mean", "decay_time",
+              "sparsity_spatial", "sparsity_temporal", "circularity",
+              "temporal_cluster", "spatial_cluster")
+
+
+def phase9c_utilities(state, gt, params):
+    """The QC, ordering, pairing and init utilities on 9a's state, card
+    against CPU, each timed."""
+    st_g, st_c = state, to_cpu(state)
+    # order_neurons: equal permutations wherever the keys are distinct
+    for key in ORDER_KEYS:
+        pg, pc = card_and_cpu(f"order_neurons({key!r})", qc.order_neurons,
+                              st_g, key)
+        pg, pc = pg.cpu(), pc
+        if torch.equal(pg, pc):
+            continue
+        kc, _ = qc.order_key(st_c, key)      # the cluster orders are host
+        kc = torch.where(st_c.active, kc, torch.nan)
+        a, b = kc[pg], kc[pc]
+        near = torch.isclose(a, b, rtol=1e-5, atol=0, equal_nan=True)
+        print(f"phase 9c: order_neurons({key!r}): {int((pg != pc).sum())} "
+              f"positions differ, all at keys within 1e-5 of each other: "
+              f"{bool(near.all())}", flush=True)
+        require(bool(near.all()), f"order_neurons({key!r}) differs at "
+                f"distinct keys")
+    perm = qc.order_neurons(st_g, "snr")
+    og, oc = card_and_cpu("apply_order", qc.apply_order, st_g, perm)
+    require(all(torch.equal(getattr(og, k).cpu(), getattr(oc, k))
+                for k in ("A", "C", "C_raw", "S", "g", "active")),
+            "apply_order differs")
+    # QC with an active-pixel mask and classify_components
+    mask = torch.as_tensor(gt.A.max(axis=0) > 0.1 * gt.A.max())
+    p_cl = params.replace(qc=dataclasses.replace(params.qc,
+                                                 classify_cl_thr=0.8))
+    kg, kc_ = card_and_cpu("remove_false_positives(active pixels, "
+                           "classify_cl_thr=0.8)",
+                           lambda st, m: qc.remove_false_positives(
+                               st, p_cl, active_pixels=m).active,
+                           st_g, mask.to(DEV))
+    require(torch.equal(kg.cpu(), kc_), "the QC keep sets differ")
+    print(f"phase 9c: QC keeps {int(kc_.sum())} of {int(st_c.n_active())} "
+          f"neurons on the planted footprints' mask", flush=True)
+    # the three candidate graphs, on thresholds that give edges
+    p_m = params.replace(merge=MergeParams(
+        dmin=12.0, dmin_only=6.0, merge_thr=0.2,
+        merge_thr_spatial=(0.05, 0.2, 0.0)))
+    for mode in ("dist_corr", "high_corr", "dist_only"):
+        fn = getattr(merge, f"merge_candidates_{mode}")
+        ag, ac = card_and_cpu(f"merge_candidates_{mode}",
+                              lambda st: fn(st, p_m), st_g)
+        print(f"phase 9c: merge_candidates_{mode}: {int(ag.sum()) // 2} "
+              f"edges on the card, {int(ac.sum()) // 2} on the cpu",
+              flush=True)
+        require(np.array_equal(ag, ac), f"merge_candidates_{mode} differ")
+    # the ellipse masks and thresholded footprints
+    A = st_g.A
+    eg, ec = card_and_cpu("search_locations_ellipse",
+                          search_locations_ellipse, A)
+    differ = (eg.cpu() != ec).numpy()
+    tie = np.abs(ellipse_r2(A.cpu().numpy()) - 1.0) <= 1e-4
+    print(f"phase 9c: ellipse masks differ at {int(differ.sum())} pixels, "
+          f"all within 1e-4 of r2 = 1: {bool(tie[differ].all())}",
+          flush=True)
+    require(bool(tie[differ].all()), "the ellipse masks differ off the "
+            "boundary")
+    tg, tc = card_and_cpu("threshold_components", threshold_components, A)
+    per = (tg.cpu() != tc).reshape(A.shape[0], -1).sum(dim=1)
+    require(int(per.max()) <= 1, f"threshold_components differs at "
+            f"{int(per.max())} pixels of one footprint")
+    # the projected correlation image against the full one
+    Y = torch.as_tensor(gt.Y, device=DEV)
+    cg, cc = card_and_cpu("local_correlation_projected(k=1000)",
+                          local_correlation_projected, Y)
+    t0 = time.perf_counter()
+    cn = correlation_image(Y)
+    torch.cuda.synchronize()
+    cn_ms = (time.perf_counter() - t0) * 1e3
+    r = float(np.corrcoef(cg.cpu().numpy().ravel(),
+                          cn.cpu().numpy().ravel())[0, 1])
+    e = float((cg.cpu() - cc).abs().max())
+    print(f"phase 9c: local_correlation_projected vs correlation_image "
+          f"(card {cn_ms:.3f} ms): map correlation {r:.4f}; card vs cpu "
+          f"max difference {e:.3e}", flush=True)
+    require(e <= 1e-4 and r >= 0.9, "local_correlation_projected disagrees")
+    # hals_nmf on a 128x128 crop, K1 against its plain version
+    crop = Y[:, :128, :128].reshape(Y.shape[0], -1).T.contiguous()
+    Ac = st_g.A[:, :128, :128].reshape(st_g.K_max, -1)
+    keep = (Ac.sum(dim=1) > 0.5 * st_g.A.sum(dim=(1, 2))) & st_g.active
+    A0 = Ac[keep].T.contiguous()
+    C0 = st_g.C[keep].contiguous()
+    cuda_build.reset_launch_counts()
+    (hg, hc) = card_and_cpu(f"hals_nmf on 128x128x2000, K={A0.shape[1]}, "
+                            f"10 iterations", hals_nmf, crop, A0, C0)
+    k1 = cuda_build.LAUNCHES["hals_sweeps"]
+    errs = [float((g.cpu() - c).abs().max() / c.abs().max())
+            for g, c in zip(hg, hc)]
+    print(f"phase 9c: hals_nmf: K1 launches {k1}; A, C max difference "
+          f"{errs[0]:.3e}, {errs[1]:.3e} of their scale", flush=True)
+    require(k1 > 0, "hals_nmf launched no K1")
+    require(max(errs) <= 1e-3, "hals_nmf card and cpu disagree")
+    # k-means++ and the sparse NMF init from the same generator
+    Yc = Y[:, :128, :128].contiguous()
+    Xk = torch.clamp(Yc.reshape(Yc.shape[0], -1).T, min=0.0)[::8]
+    (kg_, lg), (kc2, lc) = card_and_cpu("kmeans_pp(k=24) on 2048 pixel "
+                                        "traces", kmeans_pp, Xk, 24)
+    ek = float((kg_.cpu() - kc2).abs().max() / kc2.abs().max())
+    nl = int((lg.cpu() != lc).sum())
+    print(f"phase 9c: kmeans_pp: centres {ek:.3e} of their scale apart, "
+          f"{nl} labels differ", flush=True)
+    require(ek <= 1e-4 and nl == 0, "kmeans_pp card and cpu disagree")
+    (sa, sc), (sa_c, sc_c) = card_and_cpu(
+        "sparse_nmf_init(K=24) on 128x128x2000", sparse_nmf_init, Yc, 24)
+    es = [float((g.cpu() - c).abs().max() / c.abs().max())
+          for g, c in ((sa, sa_c), (sc, sc_c))]
+    print(f"phase 9c: sparse_nmf_init: A, C {es[0]:.3e}, {es[1]:.3e} of "
+          f"their scale apart", flush=True)
+    require(max(es) <= 1e-3, "sparse_nmf_init card and cpu disagree")
+    # pairing against the planted footprints
+    n = int(st_c.n_active())
+    t0 = time.perf_counter()
+    pr = pair_neurons(gt.A.reshape(gt.A.shape[0], -1).T, gt.C,
+                      st_c.A[:n].reshape(n, -1).T.numpy(),
+                      st_c.C[:n].numpy())
+    ms = (time.perf_counter() - t0) * 1e3
+    matched = int((pr.ind_max >= 0).sum())
+    print(f"phase 9c: pair_neurons against the {gt.A.shape[0]} planted "
+          f"neurons ({ms:.3f} ms, host): {matched} mutual matches, median "
+          f"combined similarity {float(np.nanmedian(pr.max_all)):.4f}",
+          flush=True)
+    require(matched >= 0.8 * gt.A.shape[0], "pair_neurons matched fewer "
+            "than 0.8 of the planted neurons")
+
+
+def phase9_local():
+    launches, state, gt, params = phase9a_local_ellipse()
+    phase9b_consistency()
+    phase9c_utilities(state, gt, params)
+    return launches
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1946,8 +2270,9 @@ def main():
         phase6c_stream_consistency(tmp)
         per_path.update(phase7_cli(tmp))
     per_path.update(phase8_2p())
+    per_path["local_ellipse"] = phase9_local()
 
-    # launches: the sum over the main-path runs of phases 4 to 8
+    # launches: the sum over the main-path runs of phases 4 to 9
     launches = {k: sum(p[k] for p in per_path.values())
                 for k in cuda_build.KERNELS}
     print(f"launches per main-path run: {json.dumps(per_path)}", flush=True)

@@ -178,10 +178,16 @@ def _place_footprints_masked(A, searched, a_boxes, rows, cols, slots, take,
     return A_pad[:K], searched | core.any(dim=0), full_A
 
 
+def refilter(Y: torch.Tensor, psf: np.ndarray) -> torch.Tensor:
+    """The band-passed, median-centred movie: filter_movie(Y, psf) less
+    its per-pixel median over time."""
+    HY = filter_movie(Y, psf)
+    return HY - fast_median(HY, dim=0, keepdim=True)
+
+
 def _init_prolog(Y_work: torch.Tensor, gSig: float, center_psf: bool):
     """Band-pass, per-pixel median centring and per-pixel noise."""
-    HY = filter_movie(Y_work, gaussian_psf(gSig, center_psf))
-    HY = HY - fast_median(HY, dim=0, keepdim=True)
+    HY = refilter(Y_work, gaussian_psf(gSig, center_psf))
     return HY, noise_psd_frames(HY)
 
 

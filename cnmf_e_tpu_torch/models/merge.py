@@ -1,7 +1,8 @@
-"""Neuron merging (port of ``cnmf_e_tpu/models/merge.py`` for the
-dist_corr, high_corr and dist_only modes; reference
+"""Neuron merging (port of ``cnmf_e_tpu/models/merge.py``: the
+dist_corr, high_corr and dist_only modes, their candidate graphs on the
+host, and the manual ``merge_pairs``; reference
 ``merge_neurons_dist_corr.m``, ``merge_high_corr.m``,
-``merge_close_neighbors.m``), and the manual ``merge_pairs``.
+``merge_close_neighbors.m``).
 
 Pairwise statistics are (K, K) matmuls; a cluster is a connected component
 of the candidate graph; each cluster is refit rank-1 (alternating least
@@ -135,6 +136,36 @@ def _adjacency(state: CNMFEState, params: CNMFEParams, st: torch.Tensor,
             adj &= st[4] >= s_thr
     off = ~torch.eye(K, dtype=torch.bool, device=st.device)
     return adj & torch.outer(state.active, state.active) & off
+
+
+def _candidates(state: CNMFEState, params: CNMFEParams, stats,
+                plane: int) -> np.ndarray:
+    st = (_merge_stats(state) if stats is None
+          else torch.as_tensor(stats, device=state.A.device))
+    return _adjacency(state, params, st, plane).cpu().numpy()
+
+
+def merge_candidates_dist_corr(state: CNMFEState, params: CNMFEParams,
+                               stats=None) -> np.ndarray:
+    """Host adjacency (K, K) bool for distance + correlation merging
+    (``merge_neurons_dist_corr.m:54-82``, with the optional decay-time
+    gate of ``:74-81``). ``stats``: the (10, K, K) statistics of
+    :func:`_merge_stats`, when the caller has them already."""
+    return _candidates(state, params, stats, _PLANES["dist_corr"])
+
+
+def merge_candidates_high_corr(state: CNMFEState, params: CNMFEParams,
+                               stats=None) -> np.ndarray:
+    """Host adjacency for the (A overlap, C corr, S corr) triple threshold
+    (``merge_high_corr.m:50-83``, ``quickMerge.m:34-60``)."""
+    return _candidates(state, params, stats, _PLANES["high_corr"])
+
+
+def merge_candidates_dist_only(state: CNMFEState, params: CNMFEParams,
+                               stats=None) -> np.ndarray:
+    """Host adjacency of the active neurons whose centres lie within
+    ``dmin_only`` (``merge_close_neighbors.m``)."""
+    return _candidates(state, params, stats, _PLANES["dist_only"])
 
 
 def _merge_adjacency(state: CNMFEState, params: CNMFEParams

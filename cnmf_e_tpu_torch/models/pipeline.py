@@ -31,19 +31,6 @@ from cnmf_e_tpu_torch.ops.noise import noise_psd_frames
 from cnmf_e_tpu_torch.utils.profiling import timed
 
 
-def check_ported(params: CNMFEParams) -> None:
-    """Raise NotImplementedError for an option whose code path is not
-    ported yet: the local background and the ellipse search."""
-    unported = {
-        "background.model": params.background.model == "local",
-        "spatial.search_method":
-            params.spatial.search_method == "ellipse",
-    }
-    bad = [name for name, hit in unported.items() if hit]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
-
-
 class CNMFE:
     """High-level pipeline object. Every tensor it builds lives on
     ``device``: the card by default, where the CUDA kernels run;
@@ -79,7 +66,6 @@ class CNMFE:
         wall time per stage (the JAX package's stage names), each stage
         closed by a device synchronisation."""
         p = self.params
-        check_ported(p)
         with timed(timer, "scrub"):
             Y = self._movie(Y)
             if not bool(torch.isfinite(Y.sum())):

@@ -1,5 +1,5 @@
 """Spatial (A) update on search-location-masked supports (port of
-``cnmf_e_tpu/models/spatial.py`` without the ellipse search; reference
+``cnmf_e_tpu/models/spatial.py``; reference
 ``update_spatial_parallel.m``): HALS, HALS with the 3-sigma pixel gate of
 ``HALS_spatial_thresh.m``, per-pixel NNLS, or the noise-constrained
 nonnegative lasso in the role of ``lars_regression_noise.m``."""
@@ -15,7 +15,8 @@ from cnmf_e_tpu_torch.models.state import CNMFEState
 from cnmf_e_tpu_torch.ops.hals import hals_spatial
 from cnmf_e_tpu_torch.ops.morphology import (circular_constraint,
                                              connectivity_constraint,
-                                             search_locations_dilate)
+                                             search_locations_dilate,
+                                             search_locations_ellipse)
 from cnmf_e_tpu_torch.ops.nnls import nnls_pixels
 
 
@@ -29,14 +30,14 @@ def update_spatial(Ysignal: torch.Tensor, state: CNMFEState,
     deviation stands in, which overestimates the floor while signal is
     unmodelled."""
     sp = params.spatial
-    if sp.search_method == "ellipse":
-        raise NotImplementedError("the ellipse search is not ported")
     T, H, W = Ysignal.shape
     K = state.K_max
     A = state.masked_A()
     C = state.masked_C()
     if sp.search_method == "dilate":
         masks = search_locations_dilate(A, radius=sp.dilate_radius)
+    elif sp.search_method == "ellipse":
+        masks = search_locations_ellipse(A)
     else:
         masks = torch.ones_like(A, dtype=torch.bool)
     masks = masks & state.active[:, None, None]

@@ -17,7 +17,9 @@ throughout, so the spatial solve runs the HALS kernel (K1) with no
 transpose; each block's ring subtraction runs the ring stencil (K6) at
 full resolution and ``background.ring_radius`` (``background.ssub`` is
 not read here, as in the JAX package), and the deconvolution the OASIS
-solve (K2 -> K3 -> K4).
+solve (K2 -> K3 -> K4). As in the JAX package, the streamed fit always
+fits its own ring background and uses no search locations: it reads
+neither ``background.model`` nor ``spatial.search_method``.
 
 Blocks reach the card through :func:`_prefetch_blocks`: a worker thread
 reads the next chunk from the memmap into a pinned host buffer while the
@@ -40,7 +42,6 @@ from cnmf_e_tpu_torch.config import CNMFEParams
 from cnmf_e_tpu_torch.io.store import MovieStore
 from cnmf_e_tpu_torch.models.initialize import initialize_greedy
 from cnmf_e_tpu_torch.models.merge import merge_neurons
-from cnmf_e_tpu_torch.models.pipeline import check_ported
 from cnmf_e_tpu_torch.models.qc import (_apply_keep, remove_false_positives,
                                         tag_neurons)
 from cnmf_e_tpu_torch.models.state import (CNMFEState, RingWeights, compact,
@@ -254,7 +255,6 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
         raise NotImplementedError("fit_streaming on a device mesh is not "
                                   "ported")
     params = params or CNMFEParams.preset_1p()
-    check_ported(params)
     device = torch.device(device)
     T, H, W = store.shape
     d = H * W

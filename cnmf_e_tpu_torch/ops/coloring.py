@@ -43,6 +43,35 @@ def greedy_color(adj: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(colors.astype(np.int32), device=adj.device)
 
 
+def color_order(adj: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(order, inverse): the permutation that makes the rows of each
+    colour class of :func:`greedy_color` contiguous, and its inverse.
+    Apply as ``X[order]`` before the sweeps and ``X[inverse]`` after."""
+    order = torch.argsort(greedy_color(adj), stable=True)
+    return order, torch.argsort(order)
+
+
+def block_free_flags(coupling: torch.Tensor, block: int = 16,
+                     gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-block independence flags (ceil(K / block),) int32 for the
+    free-step path of the HALS sweeps. coupling: (K, K), the temporal
+    Gram V or the mask-overlap Gram; a block is free iff every
+    off-diagonal entry among its gated rows is exactly zero (rows with
+    gate == 0 never update, so their couplings do not count)."""
+    K = coupling.shape[0]
+    nb = -(-K // block)
+    Kp = nb * block
+    Cg = coupling
+    if gate is not None:
+        g = gate.to(Cg.dtype)
+        Cg = Cg * g[:, None] * g[None, :]
+    Cg = torch.nn.functional.pad(Cg, (0, Kp - K, 0, Kp - K))
+    idx = torch.arange(Kp, device=Cg.device).reshape(nb, block)
+    Bd = Cg[idx[:, :, None], idx[:, None, :]]               # (nb, B, B)
+    off = ~torch.eye(block, dtype=torch.bool, device=Cg.device)
+    return (~((Bd != 0) & off).any(dim=(1, 2))).to(torch.int32)
+
+
 def class_step_schedule(colors: torch.Tensor, block: int,
                         n_cap: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,

@@ -1,9 +1,15 @@
 """Correlation image and peak-to-noise ratio maps (port of
 ``cnmf_e_tpu/ops/corr.py``; reference ``correlation_image.m:38-77``,
-``correlation_image_endoscope.m:50-96``)."""
+``correlation_image_endoscope.m:50-96``).
+
+The random projection of :func:`local_correlation_projected` comes from
+a CPU ``torch.Generator`` seeded with ``seed`` and is then moved to the
+movie's device, so the card and the CPU project alike; it is not the
+JAX package's ``jax.random`` draw."""
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -54,3 +60,19 @@ def correlation_pnr(Y: torch.Tensor, gSig: float = 3.0,
     HY_thr = torch.where(HY >= noise_thresh_sig * sn[None], HY, 0.0)
     cn = torch.nan_to_num(correlation_image(HY_thr, center=False))
     return cn, pnr
+
+
+def local_correlation_projected(Y: torch.Tensor, k: int = 1000,
+                                seed: int = 0) -> torch.Tensor:
+    """Correlation image from a random temporal projection (reference
+    option ``K`` of ``correlation_image.m:38-44``): the T centred frames
+    are projected onto k Gaussian vectors scaled by 1/sqrt(T), and the
+    neighbour correlation is taken over the k projections."""
+    T = Y.shape[0]
+    k = min(k, T)
+    gen = torch.Generator().manual_seed(seed)
+    R = torch.randn((T, k), generator=gen, dtype=Y.dtype).to(Y.device) \
+        / math.sqrt(T)
+    Yc = (Y - Y.mean(dim=0, keepdim=True)).reshape(T, -1)
+    P = (R.T @ Yc).reshape((k,) + tuple(Y.shape[1:]))
+    return correlation_image(P, center=False)

@@ -69,14 +69,17 @@ def _colored(coupling_adj: torch.Tensor):
 
 
 def hals_spatial(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
-                 mask: torch.Tensor, n_iter: int = 5) -> torch.Tensor:
+                 mask: Optional[torch.Tensor] = None, n_iter: int = 5,
+                 colored: bool = True) -> torch.Tensor:
     """Update A given C: A <- max(0, A + (U - A V) / diag(V)) per neuron,
     with means removed from Y and C (``HALS_spatial.m:28-32``).
 
-    Y: (d, T); A: (d, K); C: (K, T); mask: (d, K) search locations.
-    Neurons are ordered by a greedy colouring of the mask-overlap graph so
+    Y: (d, T); A: (d, K); C: (K, T); mask: optional (d, K) search
+    locations. With ``colored`` (which needs the mask) neurons are
+    ordered by a greedy colouring of the mask-overlap graph so
     non-overlapping neurons share a sweep step (``update_order.m:1-21``);
-    the JAX package's ``colored=True``."""
+    otherwise they update in order, 16 rows a step, as in the JAX
+    package's default."""
     T = Y.shape[-1]
     Ymean = Y.mean(dim=1, keepdim=True)
     Cmean = C.mean(dim=1, keepdim=True)
@@ -84,6 +87,10 @@ def hals_spatial(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
     # reads them without a transposing copy
     U = C @ Y.T - T * (Cmean @ Ymean.T)                     # (K, d)
     V = C @ C.T - T * (Cmean @ Cmean.T)                     # (K, K)
+    if not (colored and mask is not None):
+        return hals_spatial_sweeps_rows(
+            U, V, A.T, mask=None if mask is None else mask.T,
+            n_iter=n_iter).T
     order, inverse, sched = _colored(overlap_adjacency(mask.T))
     out = hals_spatial_sweeps_rows(U[order], V[order][:, order],
                                    A.T[order], mask=mask.T[order],
@@ -117,3 +124,18 @@ def hals_temporal(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
                                n_iter=n_iter, active=act, schedule=sched,
                                block=_BLOCK)
     return out[inverse], torch.diagonal(V)
+
+
+def hals_nmf(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
+             n_iter: int = 10, mask: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Alternate one in-order spatial and one in-order temporal HALS sweep
+    ``n_iter`` times, traces clipped at 0 (the rank-1 merge refits and
+    the simple init refinement of the reference,
+    ``merge_neurons_dist_corr.m:180-187``). Y: (d, T); A: (d, K);
+    C: (K, T); mask: optional (d, K) support of A."""
+    for _ in range(n_iter):
+        A = hals_spatial(Y, A, C, mask=mask, n_iter=1, colored=False)
+        C, _ = hals_temporal(Y, A, C, n_iter=1, colored=False)
+        C = torch.clamp(C, min=0.0)
+    return A, C

@@ -1,5 +1,5 @@
-"""Low-rank background models (2p path): truncated SVD and NMF (port of
-``randomized_svd``, ``nmf_hals`` and ``fit_lowrank_model`` of
+"""Low-rank models: the truncated SVD and NMF of the 2p background, and
+the k-means++ / sparse-NMF initializer (port of
 ``cnmf_e_tpu/ops/lowrank.py``).
 
 Reference: ``endoscope/fit_svd_model.m:27-42`` (rank-nb truncated SVD of
@@ -7,10 +7,11 @@ the background residual via ``svdsecon``) and ``fit_nmf_model.m:14-25``
 (``nnmf``): a randomized range-finder SVD (products and thin QR) and HALS
 NMF with fixed iteration counts.
 
-The random test matrix and the NMF starting factors come from a CPU
-``torch.Generator`` seeded with ``seed`` and are then moved to the data's
-device, so a fit on the card and one on the CPU start from the same
-numbers. They are not the JAX package's numbers (``jax.random``).
+The random test matrix, the NMF starting factors and the k-means++ draws
+come from a CPU ``torch.Generator`` seeded with ``seed`` and are then
+moved to the data's device, so a fit on the card and one on the CPU start
+from the same numbers. They are not the JAX package's numbers
+(``jax.random``).
 """
 
 from __future__ import annotations
@@ -76,6 +77,96 @@ def nmf_hals(X: torch.Tensor, rank: int, n_iter: int = 50, seed: int = 0,
             Wf[:, k] = torch.clamp(num / torch.clamp(HHt[k, k], min=1e-12),
                                    min=0.0)
     return Wf, Hf
+
+
+_DIST_ELEMS = 1 << 26        # (n, k, d) elements of one distance block
+
+
+def _sq_dist(X: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """(n, k) squared distances sum((x - c)^2) over d, as differences
+    (not the Gram expansion), in blocks of centres."""
+    n, d = X.shape
+    kc = max(1, _DIST_ELEMS // max(n * d, 1))
+    return torch.cat([((X[:, None] - centers[None, c0:c0 + kc]) ** 2
+                       ).sum(dim=-1)
+                      for c0 in range(0, centers.shape[0], kc)], dim=1)
+
+
+def _kmeans_pp_seeds(X: torch.Tensor, k: int, seed: int) -> torch.Tensor:
+    """k-means++ seeding: a uniform first centre, then each next centre
+    drawn with probability proportional to its squared distance from the
+    centres so far, by inverse CDF on uniforms from a CPU generator."""
+    n = X.shape[0]
+    gen = torch.Generator().manual_seed(seed)
+    first = int(torch.randint(n, (1,), generator=gen))
+    u = torch.rand(max(k - 1, 0), generator=gen,
+                   dtype=torch.float64).to(X.device)
+    centers = torch.zeros((k, X.shape[1]), dtype=X.dtype, device=X.device)
+    centers[0] = X[first]
+    d2 = _sq_dist(X, centers[:1])[:, 0]
+    for i in range(1, k):
+        d2 = torch.where(torch.isfinite(d2), d2, 1.0)
+        cdf = torch.cumsum(d2.to(torch.float64), 0)
+        idx = torch.clamp(torch.searchsorted(cdf, u[i - 1] * cdf[-1],
+                                             right=True), max=n - 1)
+        centers[i] = X[idx]
+        d2 = torch.minimum(d2, _sq_dist(X, centers[i:i + 1])[:, 0])
+    return centers
+
+
+def kmeans_pp(X: torch.Tensor, k: int, seed: int = 0, n_iter: int = 10,
+              init: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k-means++ clustering of the rows of X (n, d) (reference
+    ``utilities/kmeans_pp.m``): seeding, then ``n_iter`` Lloyd steps; an
+    empty cluster keeps its centre. ``init``: starting centres (k, d) in
+    place of the seeding. Returns (centers (k, d), labels (n,)), the
+    labels those of the last Lloyd step's assignment."""
+    centers = (_kmeans_pp_seeds(X, k, seed) if init is None else
+               torch.as_tensor(init, dtype=X.dtype, device=X.device).clone())
+    labels = _sq_dist(X, centers).argmin(dim=1)
+    for it in range(n_iter):
+        if it:
+            labels = _sq_dist(X, centers).argmin(dim=1)
+        one_hot = torch.nn.functional.one_hot(labels, k).to(X.dtype)
+        counts = one_hot.sum(dim=0)
+        new_c = (one_hot.T @ X) / torch.clamp(counts, min=1.0)[:, None]
+        centers = torch.where(counts[:, None] > 0, new_c, centers)
+    return centers, labels
+
+
+def sparse_nmf_init(Y: torch.Tensor, K: int, seed: int = 0,
+                    n_iter: int = 60, l1_c: float = 0.0,
+                    init: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sparse-NMF initialization of (A, C) (reference
+    ``utilities/sparse_NMF_initialization.m``): k-means++ on a subsample
+    of the pixel traces (every ceil(d / 2048)-th) seeds the traces, then
+    ``n_iter`` HALS rounds, each footprint column then each trace row in
+    order, with an optional l1 penalty on the traces. ``init``: the
+    k-means starting centres (K, T). Y: (T, H, W). Returns
+    (A (K, H, W), C (K, T))."""
+    T, H, W = Y.shape
+    Yf = torch.clamp(Y.reshape(T, H * W).T, min=0.0)         # (d, T)
+    stride = max(Yf.shape[0] // 2048, 1)
+    centers, _ = kmeans_pp(Yf[::stride], K, seed=seed, init=init)
+    Hf = torch.clamp(centers, min=0.0)                       # (K, T)
+    Wf = torch.clamp(Yf @ Hf.T, min=0.0) / torch.clamp(
+        (Hf * Hf).sum(dim=-1)[None], min=1e-12)
+    for _ in range(n_iter):
+        HHt = Hf @ Hf.T
+        XHt = Yf @ Hf.T
+        for k in range(K):
+            num = XHt[:, k] - Wf @ HHt[:, k] + HHt[k, k] * Wf[:, k]
+            Wf[:, k] = torch.clamp(num / torch.clamp(HHt[k, k], min=1e-12),
+                                   min=0.0)
+        WtW = Wf.T @ Wf
+        WtX = Wf.T @ Yf
+        for k in range(K):
+            num = WtX[k] - WtW[k] @ Hf + WtW[k, k] * Hf[k] - l1_c
+            Hf[k] = torch.clamp(num / torch.clamp(WtW[k, k], min=1e-12),
+                                min=0.0)
+    return Wf.T.reshape(K, H, W), Hf
 
 
 def fit_lowrank_model(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,

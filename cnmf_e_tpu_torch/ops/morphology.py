@@ -1,7 +1,7 @@
-"""Morphological ops and shape priors, batched over neurons (port of the
-parts of ``cnmf_e_tpu/ops/morphology.py`` that ``CNMFE.fit`` reaches;
-reference ``circular_constraints.m``, ``connectivity_constraint.m``,
-``determine_search_location.m`` 'dilate')."""
+"""Morphological ops and shape priors, batched over neurons (port of
+``cnmf_e_tpu/ops/morphology.py``; reference ``circular_constraints.m``,
+``connectivity_constraint.m``, ``determine_search_location.m``,
+``threshold_components.m``)."""
 
 from __future__ import annotations
 
@@ -42,6 +42,11 @@ def _maxpool(x: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
 def dilate(mask: torch.Tensor, radius: int) -> torch.Tensor:
     """Binary dilation of (..., H, W) by a disc."""
     return _maxpool(mask.to(torch.float32), disc_kernel(radius)) > 0.5
+
+
+def erode(mask: torch.Tensor, radius: int) -> torch.Tensor:
+    """Binary erosion of (..., H, W) by a disc."""
+    return ~(_maxpool((~mask).to(torch.float32), disc_kernel(radius)) > 0.5)
 
 
 def opening(img: torch.Tensor, size: int = 5) -> torch.Tensor:
@@ -115,3 +120,63 @@ def search_locations_dilate(A: torch.Tensor, radius: int = 4,
     """'dilate' search masks: grow each footprint's support by a disc."""
     peak = A.amax(dim=(-2, -1), keepdim=True)
     return dilate(A > torch.clamp(thr * peak, min=0.0), radius)
+
+
+def search_locations_ellipse(A: torch.Tensor, dist: float = 3.0,
+                             min_size: float = 3.0, max_size: float = 8.0
+                             ) -> torch.Tensor:
+    """'ellipse' search masks (``determine_search_location.m``'s
+    default): per neuron, an ellipse centred at the footprint's centre of
+    mass with axes along the principal axes of its pixel-coordinate
+    covariance, each half-axis ``dist`` standard deviations clamped to
+    [min_size, max_size]. A: (K, H, W) -> bool (K, H, W).
+
+    The 2x2 eigen-decompositions are in closed form, elementwise over
+    the K neurons: one angle theta = atan2(2 s_yx, s_yy - s_xx) / 2 gives
+    both eigenvectors. The mask depends on the eigenvectors only through
+    the squared projections, so their signs do not matter, nor their
+    rotation when the two eigenvalues are equal (the ellipse is then a
+    disc). Unlike ``torch.linalg.eigh`` this runs the same elementwise
+    operations on the card and on the CPU, with no solver call."""
+    K, H, W = A.shape
+    yy = torch.arange(H, dtype=A.dtype, device=A.device)[:, None]
+    xx = torch.arange(W, dtype=A.dtype, device=A.device)[None, :]
+    mass = A.sum(dim=(1, 2)) + 1e-12
+    cy = (A * yy[None]).sum(dim=(1, 2)) / mass
+    cx = (A * xx[None]).sum(dim=(1, 2)) / mass
+    dy = yy[None] - cy[:, None, None]
+    dx = xx[None] - cx[:, None, None]
+    syy = (A * dy * dy).sum(dim=(1, 2)) / mass
+    sxx = (A * dx * dx).sum(dim=(1, 2)) / mass
+    sxy = (A * dx * dy).sum(dim=(1, 2)) / mass
+    half = (syy - sxx) / 2
+    rad = torch.sqrt(half * half + sxy * sxy)
+    mid = (syy + sxx) / 2
+    evals = torch.stack([mid - rad, mid + rad], dim=-1)     # ascending
+    axes = torch.clamp(torch.sqrt(torch.clamp(evals, min=1e-6)) * dist,
+                       min_size, max_size)                  # (K, 2)
+    theta = torch.atan2(2 * sxy, syy - sxx) / 2
+    cos, sin = torch.cos(theta)[:, None, None], torch.sin(theta)[:, None, None]
+    # the minor axis (-sin, cos), the major axis (cos, sin), in (y, x)
+    p_minor = -sin * dy + cos * dx
+    p_major = cos * dy + sin * dx
+    r2 = (p_minor / axes[:, 0, None, None]) ** 2 \
+        + (p_major / axes[:, 1, None, None]) ** 2
+    return r2 <= 1.0
+
+
+def threshold_components(A: torch.Tensor, energy_frac: float = 0.99
+                         ) -> torch.Tensor:
+    """Keep each footprint's smallest pixel set holding ``energy_frac`` of
+    its energy (``threshold_components.m``): the pixels whose squared
+    value is at least that of the last pixel the descending cumulative
+    energy needs."""
+    K = A.shape[0]
+    flat = A.reshape(K, -1)
+    e = flat * flat
+    order = torch.sort(e, dim=-1, descending=True).values
+    csum = torch.cumsum(order, dim=-1)
+    n_keep = (csum < energy_frac * csum[:, -1:]).sum(dim=-1) + 1
+    thr2 = torch.gather(order, 1, torch.clamp(n_keep[:, None] - 1,
+                                              max=order.shape[1] - 1))
+    return (flat * (e >= thr2)).reshape(A.shape)

@@ -1,7 +1,6 @@
 """Ring background model: per-pixel ridge regression on a ring of
-neighbors (port of the parts of ``cnmf_e_tpu/ops/ring.py`` that
-``CNMFE.fit`` reaches; reference ``fit_ring_model.m:41-127``,
-``get_nhood.m``).
+neighbors (port of ``cnmf_e_tpu/ops/ring.py``; reference
+``fit_ring_model.m:41-127``, ``local_background.m``, ``get_nhood.m``).
 
 Every pixel has the same ring-offset pattern (out-of-FOV neighbors are
 zero and their weights pinned to 0), so the d small normal-equation solves
@@ -19,6 +18,7 @@ import torch.nn.functional as F
 
 from cnmf_e_tpu_torch.models.state import RingWeights
 from cnmf_e_tpu_torch.ops.filters import box_downsample, resize_linear
+from cnmf_e_tpu_torch.ops.noise import noise_psd_frames
 from cnmf_e_tpu_torch.ops.ring_kernels import (apply_ring_stencil,
                                                ring_offsets)
 
@@ -43,12 +43,22 @@ def _ssub_geometry(H: int, W: int, radius: int, ssub: int):
 
 
 def fit_ring_weights(Bf: torch.Tensor, H: int, W: int, radius: int,
-                     ridge_eps: float = 1e-5,
-                     chunk: int = 1024) -> RingWeights:
-    """Fit every pixel's ring regression with intercept. Bf: (T', H, W),
-    centred, clamped and frame-subsampled by the caller. Ridge:
-    (G + eps tr(G) I) w = X y over the augmented [ring, 1] design
-    (``fit_ring_model.m:104``)."""
+                     ridge_eps: float = 1e-5, chunk: int = 1024,
+                     mask: Optional[torch.Tensor] = None,
+                     intercept: bool = True,
+                     neighbor_cutoff: float = 1.0) -> RingWeights:
+    """Fit every pixel's ring regression. Bf: (T', H, W), centred, clamped
+    and frame-subsampled by the caller. Ridge: (G + eps tr(G) I) w = X y
+    over the augmented [ring, 1] design (``fit_ring_model.m:104``).
+
+    ``mask``: optional (T', H, W) per-pixel sample weights; frame t enters
+    pixel p's normal equations with weight mask[t, p]
+    (``local_background.m:113-116`` leaves out a pixel's event frames).
+    ``intercept=False`` fits w alone and returns w0 = 0.
+    ``neighbor_cutoff < 1``: keep only the neighbours whose slope
+    Xy / diag(G) is at most that per-pixel linear quantile
+    (``local_background.m:118-125``); the others get a unit diagonal and
+    a zero right-hand side, so their weight solves to 0."""
     T = Bf.shape[0]
     dev = Bf.device
     offsets = ring_offsets(radius)
@@ -58,10 +68,13 @@ def fit_ring_weights(Bf: torch.Tensor, H: int, W: int, radius: int,
     d = H * W
     Bf_flat = F.pad(Bf, (m, m, m, m)).reshape(T, -1)
     y_flat = Bf.reshape(T, d)
+    m_flat = None if mask is None else mask.to(torch.float32).reshape(T, d)
     idx_t = torch.as_tensor(idx, device=dev)
     valid_t = torch.as_tensor(valid, device=dev)
     TB = min(512, T)
-    eye = torch.eye(R + 1, dtype=torch.float32, device=dev)
+    eye_r = torch.eye(R, dtype=torch.float32, device=dev)
+    eye = torch.eye(R + 1 if intercept else R, dtype=torch.float32,
+                    device=dev)
     sols = []
     for p0 in range(0, d, chunk):
         ic = idx_t[p0:p0 + chunk]
@@ -71,22 +84,49 @@ def fit_ring_weights(Bf: torch.Tensor, H: int, W: int, radius: int,
         sx = torch.zeros((P, R), dtype=torch.float32, device=dev)
         Xy = torch.zeros((P, R), dtype=torch.float32, device=dev)
         sy = torch.zeros((P,), dtype=torch.float32, device=dev)
+        cnt = (torch.full((P,), float(T), device=dev) if m_flat is None
+               else torch.zeros((P,), device=dev))
         for t0 in range(0, T, TB):
             X = Bf_flat[t0:t0 + TB][:, ic] * vc[None]       # (tb, P, R)
             yb = y_flat[t0:t0 + TB, p0:p0 + P]              # (tb, P)
+            if m_flat is not None:
+                mb = m_flat[t0:t0 + TB, p0:p0 + P]
+                X = X * mb[:, :, None]
+                yb = yb * mb
+                cnt = cnt + mb.sum(dim=0)
             Xp = X.permute(1, 2, 0)                         # (P, R, tb)
             G = G + Xp @ Xp.transpose(1, 2)
             sx = sx + X.sum(dim=0)
             Xy = Xy + (Xp @ yb.T[:, :, None])[..., 0]
             sy = sy + yb.sum(dim=0)
-        cnt = torch.full((P, 1, 1), float(max(T, 1)), device=dev)
-        Gfull = torch.cat([torch.cat([G, sx[:, :, None]], dim=2),
-                           torch.cat([sx[:, None, :], cnt], dim=2)], dim=1)
-        rhs = torch.cat([Xy, sy[:, None]], dim=1)
+        if neighbor_cutoff < 1.0:
+            ratio = Xy / torch.clamp(torch.diagonal(G, dim1=1, dim2=2),
+                                     min=1e-12)
+            thr = torch.quantile(ratio, neighbor_cutoff, dim=-1,
+                                 keepdim=True)
+            keep = (ratio <= thr).to(torch.float32)
+            G = G * keep[:, :, None] * keep[:, None, :] \
+                + eye_r[None] * (1.0 - keep)[:, :, None]
+            Xy = Xy * keep
+            sx = sx * keep
+        if intercept:
+            cnt = torch.clamp(cnt, min=1.0)[:, None, None]
+            Gfull = torch.cat([torch.cat([G, sx[:, :, None]], dim=2),
+                               torch.cat([sx[:, None, :], cnt], dim=2)],
+                              dim=1)
+            rhs = torch.cat([Xy, sy[:, None]], dim=1)
+        else:
+            Gfull, rhs = G, Xy
         tr = torch.diagonal(Gfull, dim1=1, dim2=2).sum(dim=1)
-        Lc = torch.linalg.cholesky(Gfull + (ridge_eps * tr)[:, None, None]
-                                   * eye)
-        sols.append(torch.cholesky_solve(rhs[..., None], Lc)[..., 0])
+        # a pixel without an in-FOV neighbour has a zero system, which
+        # does not factor; its weights are all masked to 0 below, as in
+        # the JAX package (cho_factor leaves NaN there), so no check
+        Lc, _ = torch.linalg.cholesky_ex(
+            Gfull + (ridge_eps * tr)[:, None, None] * eye)
+        sol = torch.cholesky_solve(rhs[..., None], Lc)[..., 0]
+        if not intercept:
+            sol = torch.cat([sol, torch.zeros((P, 1), device=dev)], dim=1)
+        sols.append(sol)
     sol = torch.cat(sols, dim=0)
     return RingWeights(w=torch.where(valid_t, sol[:, :R], 0.0),
                        w0=sol[:, R].contiguous())
@@ -137,6 +177,55 @@ def fit_ring_model(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
     Bf_fit = Bf[::int(np.ceil(T / nmax))] if T > nmax else Bf
     weights = fit_ring_weights(Bf_fit, Hs, Ws, radius_s, ridge_eps=ridge_eps)
     return weights, b0, Bf_fit
+
+
+def local_background(Y: torch.Tensor, radius: int,
+                     sn: Optional[torch.Tensor] = None,
+                     thresh: float = 3.0, ssub: int = 1,
+                     neighbor_cutoff: float = 1.0, ridge_eps: float = 1e-5
+                     ) -> Tuple[torch.Tensor, RingWeights, torch.Tensor]:
+    """Event-masked ring background (``local_background.m:66-138``): it
+    needs no neuron model. The movie is centred to per-pixel mean 1;
+    samples above the uniform ring average by more than ``thresh * sn``
+    are calcium events, replaced by that average and left out of the
+    pixel's normal equations; the ring regression (no intercept) is fit
+    on the cleaned movie and predicts the background of every frame; the
+    movie mean restores the DC offset (``local_background.m:148-150``).
+    With ``ssub > 1`` all of it runs on the box-downsampled grid and the
+    prediction is upsampled bilinearly.
+
+    Y: (T, H, W). Returns (Yest (T, H, W), weights, b0 (H, W))."""
+    T, H, W = Y.shape
+    Ymean = Y.mean(dim=0)
+    Yc = Y - Ymean[None] + 1.0
+    Hs, Ws, radius_s = _ssub_geometry(H, W, radius, ssub)
+    if ssub > 1:
+        Yc = box_downsample(Yc, ssub=ssub)
+        if sn is not None:
+            sn = box_downsample(sn[None], ssub=ssub)[0]
+    if sn is None:
+        sn = noise_psd_frames(Yc)
+    # the annulus average (local_background.m:66-70) as a ring apply with
+    # uniform weights over each pixel's in-FOV neighbours
+    _, valid = _neighbor_index(Hs, Ws, ring_offsets(radius_s))
+    n_valid = np.maximum(valid.sum(axis=1, keepdims=True), 1)
+    w_unif = torch.as_tensor(valid / n_valid, dtype=torch.float32,
+                             device=Y.device)
+    Yconv = apply_ring(RingWeights(w=w_unif, w0=torch.zeros_like(
+        w_unif[:, 0])), Yc, Hs, Ws, radius_s, include_intercept=False)
+    event = (Yc - Yconv) > thresh * sn[None]
+    Yfit = torch.where(event, Yconv, Yc)
+    del Yc, Yconv
+    weights = fit_ring_weights(Yfit, Hs, Ws, radius_s, ridge_eps=ridge_eps,
+                               mask=~event, intercept=False,
+                               neighbor_cutoff=neighbor_cutoff)
+    del event
+    Yest = apply_ring(weights, Yfit, Hs, Ws, radius_s,
+                      include_intercept=False)
+    if ssub > 1:
+        Yest = resize_linear(Yest, (H, W))
+    b0 = Ymean - Yest.mean(dim=0)
+    return Yest + b0[None], weights, b0
 
 
 def reconstruct_ring_background(weights: RingWeights, Y: torch.Tensor,

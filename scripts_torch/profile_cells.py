@@ -3,7 +3,9 @@
     python3 scripts_torch/profile_cells.py [--cell colored_every_5] [--out DIR]
 
 Cells: ``fit`` (phase 4: ``CNMFE.fit`` with the 1p preset on the simulated
-256x256x2000 movie, ``n_outer=2``) and the three step variants of phase 5
+256x256x2000 movie, ``n_outer=2``), ``fit_local_ellipse`` (phase 9a: the
+same fit with the local background and the ellipse search) and the three
+step variants of phase 5
 (bench.py's hals_iter_throughput: 256x256x2000, K = 192, radius 13,
 n_hals = 1, ``chain=10``). Runs the cell once to warm up, once timed
 (CUDA events for a step, the host clock after a synchronise for the fit),
@@ -31,14 +33,17 @@ from cnmf_e_tpu_torch.models.pipeline import CNMFE  # noqa: E402
 from cnmf_e_tpu_torch.parallel.step import make_update_step  # noqa: E402
 
 STEPS = {v[0]: v[1] for v in chip_smoke.STEP_VARIANTS}
+FITS = ("fit", "fit_local_ellipse")
 
 
 def cell_runner(cell: str, dev):
     """(description, a function that runs the cell once)."""
-    if cell == "fit":
+    if cell in FITS:
         gt, params = chip_smoke.fit_problem()
+        if cell == "fit_local_ellipse":
+            params = chip_smoke.local_ellipse(params)
         Y = torch.as_tensor(gt.Y, device=dev)
-        return ("fit preset_1p 256x256x2000 K_max=192 n_outer=2",
+        return (f"{cell} preset_1p 256x256x2000 K_max=192 n_outer=2",
                 lambda: CNMFE(params, device=dev).fit(Y, n_outer=2))
     H = W = 256
     T, K, radius, chain = 2000, 192, chip_smoke.RADIUS, 10
@@ -54,7 +59,7 @@ def cell_runner(cell: str, dev):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cell", default="colored_every_5",
-                    choices=["fit", *STEPS])
+                    choices=[*FITS, *STEPS])
     ap.add_argument("--out", help="a directory for the table")
     args = ap.parse_args()
     dev = torch.device("cuda:0")
@@ -68,7 +73,7 @@ def main():
     run()
     b.record()
     torch.cuda.synchronize()
-    if args.cell == "fit":
+    if args.cell in FITS:
         timed = f"unprofiled {time.perf_counter() - t0:.3f} s (host clock)"
     else:
         timed = (f"unprofiled {a.elapsed_time(b) / 10:.3f} ms per "

@@ -133,7 +133,10 @@ COPIES = ["io/tiff.py", "io/avi.py", "io/movie.py", "io/store.py",
           "ops/detrend.py", "utils/simulate.py", "ops/kde.py",
           "utils/viz.py", "utils/report.py", "models/dff.py", "run.py",
           "ops/ar.py", "ops/nnls.py", "ops/onnls.py", "ops/oasis.py",
-          "ops/spikes.py", "models/cnmf2p.py"]
+          "ops/spikes.py", "models/cnmf2p.py", "models/pairing.py",
+          "models/qc.py", "models/merge.py", "models/background.py",
+          "models/spatial.py", "models/pipeline.py", "ops/coloring.py",
+          "ops/lowrank.py"]
 
 
 @pytest.mark.parametrize("path", COPIES)
@@ -174,6 +177,27 @@ def test_geweke_copy_agrees():
     counts = np.random.default_rng(3).poisson(4.0, (501, 6))
     counts[:, 2] = 5                                   # zero variance
     np.testing.assert_array_equal(_geweke_z(counts), jax_geweke(counts))
+
+
+def test_pairing_copy_agrees():
+    """pair_neurons, classify_components and update_order are float64
+    host numpy in both packages; the port keeps its own copy."""
+    from cnmf_e_tpu.models import pairing as jax_pairing
+    from cnmf_e_tpu_torch.models import pairing
+    rng = np.random.default_rng(6)
+    A1 = rng.random((300, 6)) * (rng.random((300, 6)) < 0.2)
+    A2 = A1[:, ::-1] + 0.01 * rng.random((300, 6))
+    C1, C2 = rng.random((6, 80)), rng.random((6, 80))
+    act = rng.random(300) > 0.5
+    for ours, theirs in (
+            (pairing.pair_neurons(A1, C1, A2, C2),
+             jax_pairing.pair_neurons(A1, C1, A2, C2)),
+            (pairing.update_order(A1), jax_pairing.update_order(A1)),
+            ([pairing.classify_components(A1, act, 0.4)],
+             [jax_pairing.classify_components(A1, act, 0.4)])):
+        assert len(ours) == len(theirs)
+        for a, b in zip(ours, theirs):
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("fpb", [250, 1000])

@@ -169,28 +169,20 @@ def test_kernel_wrappers_take_plain_path_only_for_cpu_tensors():
     assert not cuda_build.ENTRY_CALLS
 
 
-UNPORTED = {
-    "local_background": lambda p: p.replace(background=dataclasses.replace(
-        p.background, model="local")),
-    "ellipse_search": lambda p: p.replace(spatial=dataclasses.replace(
-        p.spatial, search_method="ellipse")),
-}
 # options that raised until the port took them (temporal.decorrelate and
-# the AR(2) deconvolution): they now run
+# the AR(2) deconvolution, then the local background and the ellipse
+# search): they now run
 PORTED = {
     "decorrelate": lambda p: p.replace(temporal=dataclasses.replace(
         p.temporal, decorrelate=True)),
     "ar2": lambda p: p.replace(temporal=dataclasses.replace(
         p.temporal, deconv=dataclasses.replace(p.temporal.deconv,
                                                model="ar2"))),
+    "local_background": lambda p: p.replace(background=dataclasses.replace(
+        p.background, model="local")),
+    "ellipse_search": lambda p: p.replace(spatial=dataclasses.replace(
+        p.spatial, search_method="ellipse")),
 }
-
-
-@pytest.mark.parametrize("option", sorted(UNPORTED))
-def test_unported_options_raise(option):
-    p = UNPORTED[option](params_from_dict(dataclasses.asdict(_params())))
-    with pytest.raises(NotImplementedError):
-        CNMFE(p, device="cpu").fit(np.zeros((20, 8, 8), np.float32))
 
 
 @pytest.mark.parametrize("option", sorted(PORTED))
