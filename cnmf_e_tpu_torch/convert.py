@@ -6,7 +6,9 @@
 that export (``ring_w``/``ring_w0`` for the ring weights) plus ``active``,
 and the low-rank background as ``bg_b``/``bg_f``, for every slot, so a
 round trip is lossless. ``step_state_from_numpy`` and
-``step_state_to_numpy`` do the same for the update step's ``StepState``.
+``step_state_to_numpy`` do the same for the update step's ``StepState``,
+and ``shard_step_state`` / ``gather_step_state`` carry one onto the ranks
+of a mesh and back.
 Both functions put the state on the card unless the caller passes
 ``device="cpu"``. ``params_from_dict`` builds the port's
 :class:`~cnmf_e_tpu_torch.config.CNMFEParams` from the nested dict of any
@@ -23,6 +25,7 @@ import torch
 
 from cnmf_e_tpu_torch.config import CNMFEParams
 from cnmf_e_tpu_torch.models.state import CNMFEState, RingWeights
+from cnmf_e_tpu_torch.parallel import mesh as mesh_mod
 from cnmf_e_tpu_torch.parallel.step import StepState
 
 _F32_KEYS = ("A", "C", "C_raw", "S", "g", "neuron_sn", "b0")
@@ -88,6 +91,34 @@ def step_state_from_numpy(d: dict, device="cuda") -> StepState:
 def step_state_to_numpy(st: StepState) -> dict:
     """The fields of a ``StepState`` as numpy arrays."""
     return {k: getattr(st, k).detach().cpu().numpy() for k in _STEP_KEYS}
+
+
+# each StepState field's block on a mesh (parallel/mesh.py's layout)
+_STEP_SHARDS = dict(A=(mesh_mod.shard_footprints, mesh_mod.gather_footprints),
+                    C=(mesh_mod.shard_traces, mesh_mod.gather_traces),
+                    C_raw=(mesh_mod.shard_traces, mesh_mod.gather_traces),
+                    S=(mesh_mod.shard_traces, mesh_mod.gather_traces),
+                    b0=(mesh_mod.shard_image, mesh_mod.gather_image),
+                    ring_w=(mesh_mod.shard_image, mesh_mod.gather_image),
+                    ring_w0=(mesh_mod.shard_image, mesh_mod.gather_image))
+
+
+def shard_step_state(d: dict, mesh) -> StepState:
+    """This rank's blocks of a full ``StepState`` given as a dict of numpy
+    arrays (the JAX ``StepState`` field names), on the mesh's device; g
+    replicated."""
+    kw = {k: fn(np.asarray(d[k], np.float32), mesh)
+          for k, (fn, _) in _STEP_SHARDS.items()}
+    return StepState(g=_f32(d["g"], mesh.device), **kw)
+
+
+def gather_step_state(st: StepState, mesh) -> dict:
+    """The full ``StepState`` from every rank's blocks, as numpy arrays
+    (on every rank)."""
+    out = {k: fn(getattr(st, k), mesh).detach().cpu().numpy()
+           for k, (_, fn) in _STEP_SHARDS.items()}
+    out["g"] = st.g.detach().cpu().numpy()
+    return out
 
 
 def _dataclass_from_dict(cls, d: dict):

@@ -33,12 +33,13 @@ from __future__ import annotations
 import concurrent.futures as cf
 import dataclasses
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from cnmf_e_tpu_torch.config import CNMFEParams
+from cnmf_e_tpu_torch.convert import state_from_numpy, state_to_numpy
 from cnmf_e_tpu_torch.io.store import MovieStore
 from cnmf_e_tpu_torch.models.initialize import initialize_greedy
 from cnmf_e_tpu_torch.models.merge import merge_neurons
@@ -54,6 +55,10 @@ from cnmf_e_tpu_torch.ops.oasis import deconvolve
 from cnmf_e_tpu_torch.ops.ring import apply_ring, fit_ring_weights
 from cnmf_e_tpu_torch.ops.ring_kernels import ring_offsets
 from cnmf_e_tpu_torch.ops.stats import submedian_mean
+from cnmf_e_tpu_torch.parallel import comm
+from cnmf_e_tpu_torch.parallel.mesh import (check_divisible,
+                                            gather_footprints, gather_image,
+                                            gather_traces)
 from cnmf_e_tpu_torch.utils.profiling import timed
 
 # Chunked branches. Each is exact by construction (columns, pixels and
@@ -79,12 +84,13 @@ def _row_batches(K: int, rows: int):
 # ------------------------------------------------------------------ #
 # block programs: plain functions on tensors, footprints (K, d)
 # ------------------------------------------------------------------ #
-def _ring_subtract(Yb, A_kd, C_b, b0, weights, radius, H, W):
+def _ring_subtract(Yb, A_kd, C_b, b0, weights, radius, H, W, mesh=None):
     """The block's signal Y - B, B = W (Y - b0 - A C) + w0 + b0 by the
-    ring stencil at full resolution (``streaming.py:40-59``)."""
-    T_b = Yb.shape[0]
-    X = Yb - b0[None] - (C_b.T @ A_kd).reshape(T_b, H, W)
-    return Yb - (apply_ring(weights, X, H, W, radius) + b0[None])
+    ring stencil at full resolution (``streaming.py:40-59``); under a
+    mesh on this rank's rows, with the ring's halo from its patch
+    neighbours."""
+    X = Yb - b0[None] - (C_b.T @ A_kd).reshape(Yb.shape)
+    return Yb - (apply_ring(weights, X, H, W, radius, mesh=mesh) + b0[None])
 
 
 def _block_temporal_U_raw(Yb, A_kd):
@@ -96,9 +102,10 @@ def _block_temporal_U_raw(Yb, A_kd):
     return A_kd @ Yb.reshape(Yb.shape[0], -1).T, Yb.sum(dim=0)
 
 
-def _block_temporal_U_ring(Yb, A_kd, C_blk, b0, weights, radius, H, W):
+def _block_temporal_U_ring(Yb, A_kd, C_blk, b0, weights, radius, H, W,
+                           mesh=None):
     Yb = Yb.to(torch.float32)
-    Ysig = _ring_subtract(Yb, A_kd, C_blk, b0, weights, radius, H, W)
+    Ysig = _ring_subtract(Yb, A_kd, C_blk, b0, weights, radius, H, W, mesh)
     return A_kd @ Ysig.reshape(Yb.shape[0], -1).T
 
 
@@ -127,10 +134,11 @@ def _interp_grid_traces(Cg, t0: int, n: int, stride: int):
     return Cg[:, m0] * (1.0 - frac)[None] + Cg[:, m1] * frac[None]
 
 
-def _block_spatial_U(U, Yb, A_kd, C_blk, b0, weights, radius, H, W):
+def _block_spatial_U(U, Yb, A_kd, C_blk, b0, weights, radius, H, W,
+                     mesh=None):
     """U += C_b Ysig_b, in place on the (K, d) accumulator."""
     Yb = Yb.to(torch.float32)
-    Ysig = _ring_subtract(Yb, A_kd, C_blk, b0, weights, radius, H, W)
+    Ysig = _ring_subtract(Yb, A_kd, C_blk, b0, weights, radius, H, W, mesh)
     return U.addmm_(C_blk, Ysig.reshape(Yb.shape[0], -1))
 
 
@@ -138,12 +146,16 @@ def _block_spatial_U(U, Yb, A_kd, C_blk, b0, weights, radius, H, W):
 # block upload
 # ------------------------------------------------------------------ #
 def _prefetch_blocks(store: MovieStore, device, slicer=None,
-                     sub_blocks: int = 1, spans: Optional[list] = None):
+                     sub_blocks: int = 1, spans: Optional[list] = None,
+                     frames: Optional[Tuple[int, int]] = None,
+                     rows: Optional[Tuple[int, int]] = None):
     """Iterate frame chunks as tensors on ``device``, in order: yields
     ``(t0, chunk)`` with t0 the chunk's global start frame, in the store's
     dtype. ``slicer(t0, memmap) -> ndarray`` reads only the frames a pass
     needs (the strided ring fit); ``sub_blocks`` splits each stored block
-    into that many chunks.
+    (or its part in ``frames``) into that many chunks. ``frames`` and
+    ``rows``: read only frames [t0, t1) and rows [h0, h1) (a mesh rank's
+    block; default all).
 
     On a CUDA device a worker thread reads chunk i+1 into one of two
     pinned host buffers while chunk i is computed on; each copy runs on a
@@ -154,23 +166,27 @@ def _prefetch_blocks(store: MovieStore, device, slicer=None,
     given, each copy appends (start event, end event, bytes)."""
     device = torch.device(device)
     fpb = store.frames_per_block
-    T = store.shape[0]
+    T, H = store.shape[:2]
+    f0, f1 = (0, T) if frames is None else frames
+    h0, h1 = (0, H) if rows is None else rows
     jobs = []
     for i in range(store.n_blocks()):
-        nb = min(fpb, T - i * fpb)
-        step = -(-nb // max(sub_blocks, 1))
-        for s0 in range(0, nb, step):
-            jobs.append((i, s0, min(step, nb - s0)))
+        a, b = max(i * fpb, f0) - i * fpb, min((i + 1) * fpb, f1, T) - i * fpb
+        if b <= a:
+            continue
+        step = -(-(b - a) // max(sub_blocks, 1))
+        for s0 in range(a, b, step):
+            jobs.append((i, s0, min(step, b - s0)))
 
-    def frames(job):
+    def chunk_of(job):
         i, s0, n = job
-        blk = store.read_block(i)[s0:s0 + n]
+        blk = store.read_block(i)[s0:s0 + n, h0:h1]
         return slicer(i * fpb + s0, blk) if slicer is not None else blk
 
     if device.type != "cuda":
         for job in jobs:
             yield job[0] * fpb + job[1], torch.from_numpy(np.array(
-                frames(job)))
+                chunk_of(job)))
         return
 
     copy_stream = torch.cuda.Stream(device)
@@ -179,7 +195,7 @@ def _prefetch_blocks(store: MovieStore, device, slicer=None,
     done = [None, None]       # each buffer's last copy-done event
 
     def read(j):
-        chunk = frames(jobs[j])
+        chunk = chunk_of(jobs[j])
         slot = j % 2
         if done[slot] is not None:
             done[slot].synchronize()
@@ -249,23 +265,40 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
     resumes in the other). ``timer``: optional
     :class:`cnmf_e_tpu_torch.utils.profiling.StageTimer`; each stage ends
     with a device synchronisation, and the uploads' copy-stream time and
-    bytes are added as stage ``upload``. ``mesh``: the multi-device
-    branch is not ported."""
-    if mesh is not None:
-        raise NotImplementedError("fit_streaming on a device mesh is not "
-                                  "ported")
+    bytes are added as stage ``upload``.
+
+    ``mesh``: a :class:`~cnmf_e_tpu_torch.parallel.mesh.Mesh` (BASELINE
+    config 5's "patch-sharded across N >= 2 hosts",
+    ``cnmf_e_tpu/models/streaming.py:226-237``). Every rank calls
+    ``fit_streaming`` with the same arguments and ``device=mesh.device``,
+    streams its own frames and rows, and returns the same full state. The
+    Grams are summed over 'frame' (spatial) and 'patch' (temporal), the
+    block ring subtraction and the ring fit take the ring's halo rows from
+    the patch neighbours, the ring fit gathers its strided rows over
+    'frame', and the baseline and deconvolution run on whole traces, K /
+    n_patch of them a patch rank. The init, QC and merges run on rank 0
+    on the gathered state, which goes to every rank (GSPMD leaves them
+    unsharded too); rank 0 writes the snapshots and computes the pixel
+    noise. H, T and K_max must divide over their axes."""
     params = params or CNMFEParams.preset_1p()
     device = torch.device(device)
     T, H, W = store.shape
-    d = H * W
     radius = params.background.ring_radius
+    lead = mesh is None or mesh.rank == 0
+    check_divisible(mesh, H=H, T=T)
+    h0, h1 = (0, H) if mesh is None else mesh.rows(H)
+    f0, f1 = (0, T) if mesh is None else mesh.frames(T)
+    Hl = h1 - h0
+    dl = Hl * W
     log = (lambda m: print(f"[stream] {m() if callable(m) else m}",
-                           flush=True)) if verbose else (lambda m: None)
+                           flush=True)) if verbose and lead \
+        else (lambda m: None)
     spans = [] if timer is not None else None
 
     def blocks(slicer=None, sub_blocks=1):
         return _prefetch_blocks(store, device, slicer=slicer,
-                                sub_blocks=sub_blocks, spans=spans)
+                                sub_blocks=sub_blocks, spans=spans,
+                                frames=(f0, f1), rows=(h0, h1))
 
     def strided(stride):
         def slicer(t0, blk):
@@ -274,6 +307,51 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
 
     def tensor(x, dtype=torch.float32):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    def frame_mean(x, n):
+        """The mean over all n frames of (K, this rank's frames) ``x``."""
+        if mesh is None:
+            return x.mean(dim=-1)
+        return comm.psum(x.sum(dim=-1), mesh, "frame") / n
+
+    def blocks_of(st: CNMFEState) -> CNMFEState:
+        """This rank's blocks of a full state (the state itself without a
+        mesh); T = 1 trace placeholders stay whole."""
+        if mesh is None:
+            return st
+        kw = {k: getattr(st, k)[:, f0:f1].contiguous()
+              for k in ("C", "C_raw", "S") if getattr(st, k).shape[1] == T}
+        if st.W is not None:
+            kw["W"] = _pixel_rows(st.W, h0 * W, h1 * W)
+        return st.replace(A=st.A[:, h0:h1].contiguous(),
+                          b0=st.b0[h0:h1].contiguous(), **kw)
+
+    def gathered(st: CNMFEState) -> CNMFEState:
+        """The full state from every rank's blocks (a collective)."""
+        if mesh is None:
+            return st
+        kw = {k: gather_traces(getattr(st, k), mesh)
+              for k in ("C", "C_raw", "S")}
+        if st.W is not None:
+            kw["W"] = RingWeights(w=gather_image(st.W.w, mesh),
+                                  w0=gather_image(st.W.w0, mesh))
+        return st.replace(A=gather_footprints(st.A, mesh),
+                          b0=gather_image(st.b0, mesh), **kw)
+
+    def on_lead(fn, st: CNMFEState, whole: bool = False):
+        """``fn(full state) -> (full state, extra)`` on rank 0 only; every
+        rank gets the result (its blocks, or the whole with ``whole``)
+        and ``extra``."""
+        if mesh is None:
+            return fn(st)
+        full = gathered(st)
+        out = None
+        if lead:
+            res, extra = fn(full)
+            out = (state_to_numpy(res), extra)
+        d, extra = comm.broadcast_object(out, mesh)
+        res = state_from_numpy(d, device)
+        return (res if whole else blocks_of(res)), extra
 
     # ---- init on a decimated proxy movie, or resume ------------------
     state = None
@@ -300,10 +378,11 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
             resume_mid = resume_post_spatial or (
                 stage_str.endswith("_traces") and full_T)
             if resume_post_spatial:
-                resume_weights = RingWeights(w=tensor(z["ring_w"]),
-                                             w0=tensor(z["ring_w0"]))
-                resume_b0 = tensor(z["b0"])
-                resume_Ymean = tensor(z["Ymean"])
+                resume_weights = _pixel_rows(RingWeights(
+                    w=tensor(z["ring_w"]), w0=tensor(z["ring_w0"])),
+                    h0 * W, h1 * W)
+                resume_b0 = tensor(z["b0"])[h0:h1]
+                resume_Ymean = tensor(z["Ymean"])[h0:h1]
             if resume_mid:
                 Cj = tensor(z["C"])
                 # S was not saved: the inverse AR recurrence of the
@@ -322,68 +401,75 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
         with timed(timer, "init"):
             tsub = max(-(-T // init_budget_frames), 1)
             ssub = max(int(params.init.ssub), 1)
-            # the proxy is built block by block on the host (bounded RAM);
-            # the spatial pool runs there too and cuts the upload by ssub^2
-            Hs, Ws = H // ssub, W // ssub
-            parts = []
-            offset = 0
-            for Yb in store.iter_blocks_raw():
-                sl = np.asarray(Yb)[(-offset) % tsub::tsub].astype(
-                    np.float32)
-                if ssub > 1:
-                    sl = sl[:, :Hs * ssub, :Ws * ssub].reshape(
-                        sl.shape[0], Hs, ssub, Ws, ssub).mean(axis=(2, 4))
-                parts.append(sl)
-                offset += Yb.shape[0]
-            Y_proxy = tensor(np.concatenate(parts, axis=0))
-            del parts
-            ip_init = dataclasses.replace(
-                params.init, tsub=1, ssub=1,
-                gSig=max(params.init.gSig / ssub, 0.0),
-                gSiz=max(int(params.init.gSiz // ssub), 3))
-            state, _ = initialize_greedy(
-                Y_proxy, params.replace(init=ip_init), verbose=verbose)
-            del Y_proxy
-            if ssub > 1:
-                # footprints back to full resolution; traces are rebuilt
-                # at full T below, so only A, active, g and sn carry
-                state = empty_state(state.K_max, H, W, 1,
-                                    p=state.g.shape[1],
-                                    device=device).replace(
-                    A=spatial_upsample(state.A, ssub, (H, W))
-                    * state.active[:, None, None],
-                    active=state.active, g=state.g,
-                    neuron_sn=state.neuron_sn)
+            if lead:
+                state = _init_proxy(store, params, tsub, ssub, device,
+                                    verbose)
+            if mesh is not None:
+                d = comm.broadcast_object(
+                    state_to_numpy(state) if lead else None, mesh)
+                state = state_from_numpy(d, device)
         log(lambda state=state: f"init (tsub={tsub}, ssub={ssub}): "
             f"{int(state.n_active())} neurons")
-        if snapshot_path is not None:
+        if snapshot_path is not None and lead:
             _save_snapshot(snapshot_path, "init", state, traces=False)
             log(f"init snapshot -> {snapshot_path}")
 
     # traces expand to full T at the first temporal solve; until then
     # they are T = 1 placeholders
     K_cap = state.K_max
+    check_divisible(mesh, K=K_cap)
     if not resume_mid:
         z1 = torch.zeros((K_cap, 1), device=device)
         state = state.replace(C=z1, C_raw=z1, S=z1)
+    state = blocks_of(state)
+    k0, k1 = (0, K_cap) if mesh is None else mesh.neurons(K_cap)
 
     # ---- pixel noise, cached in the store (the first noise_frame_cap
     # frames, in row bands) ---------------------------------------------
     with timed(timer, "noise"):
-        if store.load_noise() is None:
+        if lead and store.load_noise() is None:
             cap = min(params.noise_frame_cap, T)
             Yn = store.read_frames(0, cap)
             rows = max(1, min(H, int((512 << 20) // max(cap * W * 4, 1))))
             store.save_noise(np.concatenate([
-                _np(noise_psd_frames(tensor(Yn[:, h0:h0 + rows])))
-                for h0 in range(0, H, rows)], axis=0))
+                _np(noise_psd_frames(tensor(Yn[:, r0:r0 + rows])))
+                for r0 in range(0, H, rows)], axis=0))
             del Yn
 
     fpb = store.frames_per_block
-    sub_blocks = max(1, -(-fpb * d * 4 // CHUNK_BYTES))
-    R = ring_offsets(radius).shape[0]
+    sub_blocks = max(1, -(-fpb * dl * 4 // CHUNK_BYTES))
+    offsets = ring_offsets(radius)
+    R = offsets.shape[0]
+    reach = int(np.abs(offsets[:, 0]).max())
     stride = max(int(np.ceil(T / (params.background.frame_cap_factor * R))),
                  1)
+
+    def n_grid_in(a, b):
+        """The stride-grid frames (0, stride, ...) in [a, b)."""
+        return len(range(-(-a // stride) * stride, b, stride))
+    n_grid = n_grid_in(0, T)
+    g_lo = -(-f0 // stride)          # this rank's first grid column
+    Tl = f1 - f0
+    grid_sizes = (None if mesh is None else
+                  [n_grid_in(g * Tl, (g + 1) * Tl)
+                   for g in range(mesh.n_frame)])
+
+    def fit_ring(Bf):
+        """The ring weights of this rank's pixels from its strided
+        residual rows Bf (its frames and rows): under a mesh the rows take
+        the ring's halo from the patch neighbours and the frames of the
+        other frame ranks."""
+        if mesh is None:
+            return fit_ring_weights(Bf, H, W, radius,
+                                    ridge_eps=params.background.ridge_eps)
+        Bp = comm.all_gather_cat(comm.halo_rows(Bf, reach, mesh), 0,
+                                 mesh.frame_group, grid_sizes)
+        return fit_ring_weights(
+            Bp, Hl + 2 * reach, W, radius,
+            ridge_eps=params.background.ridge_eps, rows=(reach, reach + Hl),
+            fov_rows=(max(reach - h0, 0), min(reach + H - h0,
+                                              Hl + 2 * reach)))
+
     weights = None
     Ymean = None
 
@@ -391,7 +477,7 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
         skip_temporal = resume_mid and it == 0
         skip_ring_spatial = resume_post_spatial and it == 0
         # the (K, d) view of the footprints the block programs read
-        A_kd = state.A.reshape(K_cap, d)
+        A_kd = state.A.reshape(K_cap, dl)
         if skip_ring_spatial:
             state = state.replace(b0=resume_b0, W=resume_weights)
             weights = resume_weights
@@ -407,7 +493,7 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
                     (-(bi * fpb)) % stride::stride], np.float32)
                 acc_h += sub.sum(axis=0)
                 n_h += sub.shape[0]
-            Ymean = tensor((acc_h / max(n_h, 1)).astype(np.float32))
+            Ymean = tensor((acc_h / max(n_h, 1)).astype(np.float32))[h0:h1]
             log(f"iter {it}: resumed at ring fit (strided Ymean over {n_h} "
                 f"frames)")
         C_boot = None
@@ -419,17 +505,18 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
             # the ring background (demo_large_data_1p.m:199-209) -------
             with timed(timer, "bootstrap"):
                 Yg = torch.cat([b for _, b in blocks(strided(stride))])
-                n_grid = Yg.shape[0]
+                n_loc = Yg.shape[0]
                 gb = max(fpb // stride, 1)
-                Ug = torch.empty((K_cap, n_grid), device=device)
-                acc_g = torch.zeros((H, W), device=device)
-                for g0 in range(0, n_grid, gb):
+                Ug = torch.empty((K_cap, n_loc), device=device)
+                acc_g = torch.zeros((Hl, W), device=device)
+                for g0 in range(0, n_loc, gb):
                     Ub, s = _block_temporal_U_raw(Yg[g0:g0 + gb], A_kd)
                     Ug[:, g0:g0 + gb] = Ub
                     acc_g += s
-                Ymean = acc_g / n_grid
-                Vg = A_kd @ A_kd.T
+                Ymean = comm.psum(acc_g, mesh, "frame") / n_grid
+                Vg = comm.psum(A_kd @ A_kd.T, mesh, "patch")
                 Ug -= (A_kd @ Ymean.reshape(-1))[:, None]
+                Ug = comm.psum(Ug, mesh, "patch")
                 C0g = torch.clamp(Ug / torch.clamp(torch.diagonal(Vg),
                                                    min=1e-12)[:, None],
                                   min=0.0)
@@ -437,19 +524,19 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
                                           n_iter=params.temporal.n_iter,
                                           active=state.active)
                 del Ug, C0g
-                Cg_mean = Cg.mean(dim=1)
+                Cg_mean = frame_mean(Cg, n_grid)
                 state = state.replace(
-                    b0=Ymean - (Cg_mean @ A_kd).reshape(H, W))
+                    b0=Ymean - (Cg_mean @ A_kd).reshape(Hl, W))
                 Ccg = (Cg - Cg_mean[:, None]).contiguous()
                 Bf = torch.cat([_block_Bf(Yg[g0:g0 + gb], A_kd, Ccg, Ymean,
                                           g0)
-                                for g0 in range(0, n_grid, gb)])
+                                for g0 in range(0, n_loc, gb)])
                 del Yg, Ccg
-                weights = fit_ring_weights(
-                    Bf, H, W, radius, ridge_eps=params.background.ridge_eps)
+                weights = fit_ring(Bf)
                 del Bf
                 state = state.replace(W=weights)
-                C_boot = Cg
+                C_boot = (Cg if mesh is None else comm.all_gather_cat(
+                    Cg, 1, mesh.frame_group, grid_sizes))
             log(f"iter {it}: ring bootstrap fit ({n_grid} strided frames)")
         if not skip_temporal:
             # ---- temporal pass: the projection U = A Ysig accumulates
@@ -457,30 +544,32 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
             # cross-term coordinate descent (HALS_temporal.m:58-107) runs
             # exactly as in memory ----------------------------------------
             with timed(timer, "temporal"):
-                V = A_kd @ A_kd.T
+                V = comm.psum(A_kd @ A_kd.T, mesh, "patch")
                 aa = torch.diagonal(V)
-                U = torch.empty((K_cap, T), device=device)
+                U = torch.empty((K_cap, Tl), device=device)
                 if weights is None:
                     # the first pass doubles as the mean-image
                     # accumulation
-                    acc = torch.zeros((H, W), device=device)
+                    acc = torch.zeros((Hl, W), device=device)
                     for t0, Yb in blocks(sub_blocks=sub_blocks):
                         Ub, s = _block_temporal_U_raw(Yb, A_kd)
-                        U[:, t0:t0 + Yb.shape[0]] = Ub
+                        U[:, t0 - f0:t0 - f0 + Yb.shape[0]] = Ub
                         acc += s
-                    Ymean = acc / T
+                    Ymean = comm.psum(acc, mesh, "frame") / T
                     U -= (A_kd @ Ymean.reshape(-1))[:, None]
                 else:
                     for t0, Yb in blocks(sub_blocks=sub_blocks):
                         n = Yb.shape[0]
                         C_blk = (_interp_grid_traces(C_boot, t0, n, stride)
                                  if C_boot is not None
-                                 else state.C[:, t0:t0 + n])
-                        U[:, t0:t0 + n] = _block_temporal_U_ring(
-                            Yb, A_kd, C_blk, state.b0, weights, radius, H, W)
+                                 else state.C[:, t0 - f0:t0 - f0 + n])
+                        U[:, t0 - f0:t0 - f0 + n] = _block_temporal_U_ring(
+                            Yb, A_kd, C_blk, state.b0, weights, radius, H, W,
+                            mesh)
+                U = comm.psum(U, mesh, "patch")
                 # frame-chunked sweeps: columns are independent given V
                 parts = []
-                for t0 in range(0, T, T_CHUNK):
+                for t0 in range(0, Tl, T_CHUNK):
                     Ub = U[:, t0:t0 + T_CHUNK].contiguous()
                     C0 = torch.clamp(Ub / torch.clamp(aa, min=1e-12)[:, None],
                                      min=0.0)
@@ -490,16 +579,18 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
                 del U
                 C_raw = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
                 del parts
-                # neuron-batched baseline + deconvolution: rows are
+                # neuron-batched baseline + deconvolution on whole traces
+                # (this patch rank's neurons under a mesh): rows are
                 # independent, so batching is exact
-                act = state.active[:, None]
+                C_raw = comm.traces_to_neurons(C_raw, mesh)
+                act = state.active[k0:k1, None]
                 rows = (max(DECONV_ALIGN, DECONV_BYTES // max(T * 4, 1)
                             // DECONV_ALIGN * DECONV_ALIGN)
-                        if T > T_CHUNK else K_cap)
+                        if T > T_CHUNK else k1 - k0)
                 C_new = torch.empty_like(C_raw)
                 Cr_new = torch.empty_like(C_raw)
                 S_new = torch.empty_like(C_raw)
-                for sl in _row_batches(K_cap, rows):
+                for sl in _row_batches(k1 - k0, rows):
                     Cb = C_raw[sl]
                     Cb = Cb - submedian_mean(Cb, dim=-1)[:, None]
                     res = deconvolve(Cb, params.temporal.deconv)
@@ -508,33 +599,39 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
                                              0.0)
                     S_new[sl] = torch.where(act[sl], res.s, 0.0)
                 del C_raw
-                state = state.replace(C=C_new, C_raw=Cr_new, S=S_new)
+                state = state.replace(
+                    C=comm.traces_to_frames(C_new, T, mesh),
+                    C_raw=comm.traces_to_frames(Cr_new, T, mesh),
+                    S=comm.traces_to_frames(S_new, T, mesh))
             log(lambda state=state:
                 f"iter {it}: traces ({int(state.n_active())} neurons)")
             if snapshot_path is not None:
                 # A is unchanged by the temporal stage: reuse the previous
                 # snapshot's copy
-                A_prev = None
-                if os.path.exists(snapshot_path):
-                    with np.load(snapshot_path) as z:
-                        A_prev = z["A"]
-                _save_snapshot(snapshot_path, f"iter{it}_traces", state,
-                               A=A_prev)
+                full = gathered(state)
+                if lead:
+                    A_prev = None
+                    if os.path.exists(snapshot_path):
+                        with np.load(snapshot_path) as z:
+                            A_prev = z["A"]
+                    _save_snapshot(snapshot_path, f"iter{it}_traces", full,
+                                   A=A_prev)
                 log(f"iter {it}: traces snapshot -> {snapshot_path}")
 
         if not skip_ring_spatial:
             # ---- ring background fit on strided residual rows ----------
             with timed(timer, "ring_fit"):
-                Cmean = state.C.mean(dim=-1)
+                Cmean = frame_mean(state.C, T)
                 state = state.replace(
-                    b0=Ymean - (Cmean @ A_kd).reshape(H, W))
-                Cc_s = (state.C - Cmean[:, None])[:, ::stride].contiguous()
+                    b0=Ymean - (Cmean @ A_kd).reshape(Hl, W))
+                Cc_s = (state.C - Cmean[:, None])[
+                    :, (-f0) % stride::stride].contiguous()
                 Bf = torch.cat([
-                    _block_Bf(Yb_s, A_kd, Cc_s, Ymean, -(-t0 // stride))
+                    _block_Bf(Yb_s, A_kd, Cc_s, Ymean,
+                              -(-t0 // stride) - g_lo)
                     for t0, Yb_s in blocks(strided(stride))])
                 del Cc_s
-                weights = fit_ring_weights(
-                    Bf, H, W, radius, ridge_eps=params.background.ridge_eps)
+                weights = fit_ring(Bf)
                 del Bf
                 state = state.replace(W=weights)
             log(f"iter {it}: ring background fit")
@@ -543,59 +640,107 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
             # row-major (K, d) factor -----------------------------------
             with timed(timer, "spatial"):
                 C = state.C
-                U = torch.zeros((K_cap, d), device=device)
+                U = torch.zeros((K_cap, dl), device=device)
                 for t0, Yb in blocks(sub_blocks=sub_blocks):
-                    _block_spatial_U(U, Yb, A_kd, C[:, t0:t0 + Yb.shape[0]],
-                                     state.b0, weights, radius, H, W)
-                V = C @ C.T
-                if d > 2 * D_CHUNK:
+                    _block_spatial_U(U, Yb, A_kd,
+                                     C[:, t0 - f0:t0 - f0 + Yb.shape[0]],
+                                     state.b0, weights, radius, H, W, mesh)
+                U = comm.psum(U, mesh, "frame")
+                V = comm.psum(C @ C.T, mesh, "frame")
+                if dl > 2 * D_CHUNK:
                     # pixel-chunked sweeps: pixels are independent given V
                     A_new = torch.cat([hals_spatial_sweeps_rows(
                         U[:, p0:p0 + D_CHUNK].contiguous(), V,
                         A_kd[:, p0:p0 + D_CHUNK].contiguous(),
                         n_iter=params.spatial.n_iter)
-                        for p0 in range(0, d, D_CHUNK)], dim=1)
+                        for p0 in range(0, dl, D_CHUNK)], dim=1)
                 else:
                     A_new = hals_spatial_sweeps_rows(
                         U, V, A_kd, n_iter=params.spatial.n_iter)
                 del U, A_kd
-                state = state.replace(A=A_new.reshape(K_cap, H, W)
+                state = state.replace(A=A_new.reshape(K_cap, Hl, W)
                                       * state.active[:, None, None])
             log(f"iter {it}: spatial")
             if snapshot_path is not None and T > T_CHUNK:
                 # post-spatial snapshot: a resume point past the two
                 # full-movie passes
-                _save_snapshot(snapshot_path, f"iter{it}_spatial", state,
-                               ring_w=_np(weights.w, np.float16),
-                               ring_w0=_np(weights.w0, np.float32),
-                               b0=_np(state.b0, np.float32),
-                               Ymean=_np(Ymean, np.float32))
+                full = gathered(state)
+                Ym = Ymean if mesh is None else gather_image(Ymean, mesh)
+                if lead:
+                    _save_snapshot(snapshot_path, f"iter{it}_spatial", full,
+                                   ring_w=_np(full.W.w, np.float16),
+                                   ring_w0=_np(full.W.w0, np.float32),
+                                   b0=_np(full.b0, np.float32),
+                                   Ymean=_np(Ym, np.float32))
                 log(f"iter {it}: spatial snapshot -> {snapshot_path}")
 
-        with timed(timer, "qc_merge"):
-            state = _quality_control(state, params, T, deactivate=True)
+        def qc_merge(st):
+            st = _quality_control(st, params, T, deactivate=True)
             # deconv=False: non-final iterations are re-deconvolved by the
             # next temporal pass; on the final one the merged clusters
             # keep their rank-1 refit traces
-            state, nm = merge_neurons(state, params, "dist_corr",
-                                      deconv=False)
-            state, nm2 = merge_neurons(state, params, "dist_only",
-                                       deconv=False)
+            st, nm = merge_neurons(st, params, "dist_corr", deconv=False)
+            st, nm2 = merge_neurons(st, params, "dist_only", deconv=False)
+            if snapshot_path is not None:
+                _save_snapshot(snapshot_path, f"iter{it}", st)
+            return st, (int(nm), int(nm2))
+
+        with timed(timer, "qc_merge"):
+            state, (nm, nm2) = on_lead(qc_merge, state)
         log(lambda nm=nm, nm2=nm2, state=state:
-            f"iter {it}: QC + merges ({int(nm)}+{int(nm2)}), "
+            f"iter {it}: QC + merges ({nm}+{nm2}), "
             f"{int(state.n_active())} neurons")
         if snapshot_path is not None:
-            _save_snapshot(snapshot_path, f"iter{it}", state)
             log(f"iter {it}: snapshot -> {snapshot_path}")
 
     with timed(timer, "tags"):
-        state = compact(_quality_control(state, params, T,
-                                         deactivate=False))
+        state, _ = on_lead(lambda st: (compact(_quality_control(
+            st, params, T, deactivate=False)), None), state, whole=True)
     if timer is not None and spans:
         torch.cuda.synchronize(device)
         timer.add("upload", sum(a.elapsed_time(b) for a, b, _ in spans)
                   / 1e3, count=len(spans),
                   nbytes=sum(n for _, _, n in spans))
+    return state
+
+
+def _pixel_rows(w: RingWeights, p0: int, p1: int) -> RingWeights:
+    return RingWeights(w=w.w[p0:p1].contiguous(), w0=w.w0[p0:p1].contiguous())
+
+
+def _init_proxy(store: MovieStore, params: CNMFEParams, tsub: int,
+                ssub: int, device, verbose: bool) -> CNMFEState:
+    """The greedy init on a proxy movie decimated tsub-fold in time and
+    pooled ssub-fold in space, built block by block on the host (bounded
+    RAM; the pool cuts the upload by ssub^2); footprints back at full
+    resolution, T = 1 traces (they are rebuilt at full T)."""
+    T, H, W = store.shape
+    Hs, Ws = H // ssub, W // ssub
+    parts = []
+    offset = 0
+    for Yb in store.iter_blocks_raw():
+        sl = np.asarray(Yb)[(-offset) % tsub::tsub].astype(np.float32)
+        if ssub > 1:
+            sl = sl[:, :Hs * ssub, :Ws * ssub].reshape(
+                sl.shape[0], Hs, ssub, Ws, ssub).mean(axis=(2, 4))
+        parts.append(sl)
+        offset += Yb.shape[0]
+    Y_proxy = torch.as_tensor(np.concatenate(parts, axis=0), device=device)
+    del parts
+    ip_init = dataclasses.replace(
+        params.init, tsub=1, ssub=1, gSig=max(params.init.gSig / ssub, 0.0),
+        gSiz=max(int(params.init.gSiz // ssub), 3))
+    state, _ = initialize_greedy(Y_proxy, params.replace(init=ip_init),
+                                 verbose=verbose)
+    del Y_proxy
+    if ssub > 1:
+        # footprints back to full resolution; traces are rebuilt at full
+        # T, so only A, active, g and sn carry
+        state = empty_state(state.K_max, H, W, 1, p=state.g.shape[1],
+                            device=device).replace(
+            A=spatial_upsample(state.A, ssub, (H, W))
+            * state.active[:, None, None],
+            active=state.active, g=state.g, neuron_sn=state.neuron_sn)
     return state
 
 

@@ -15,12 +15,16 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from cnmf_e_tpu_torch.parallel import comm
 
-def overlap_adjacency(support: torch.Tensor) -> torch.Tensor:
+
+def overlap_adjacency(support: torch.Tensor, mesh=None) -> torch.Tensor:
     """Boolean overlap graph (K, K) of the row supports of ``support``
-    (K, d), zero diagonal (``update_order.m:4-5``)."""
+    (K, d), zero diagonal (``update_order.m:4-5``). ``mesh``: ``support``
+    holds this rank's pixels; the overlap counts are summed over 'patch',
+    so every rank holds the same graph."""
     S = (support > 0).to(torch.float32)
-    O = S @ S.T
+    O = comm.psum(S @ S.T, mesh, "patch")
     eye = torch.eye(S.shape[0], dtype=torch.bool, device=S.device)
     return (O > 0) & ~eye
 

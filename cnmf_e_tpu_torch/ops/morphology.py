@@ -9,6 +9,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cnmf_e_tpu_torch.parallel import comm
+
 
 def disc_kernel(radius: int) -> np.ndarray:
     y, x = np.mgrid[-radius:radius + 1, -radius:radius + 1]
@@ -116,10 +118,20 @@ def circular_constraint(img: torch.Tensor) -> torch.Tensor:
 
 
 def search_locations_dilate(A: torch.Tensor, radius: int = 4,
-                            thr: float = 0.0) -> torch.Tensor:
-    """'dilate' search masks: grow each footprint's support by a disc."""
+                            thr: float = 0.0, mesh=None) -> torch.Tensor:
+    """'dilate' search masks: grow each footprint's support by a disc.
+
+    ``mesh``: A is this rank's (K, H/patch, W) rows; the slab takes
+    ``radius`` rows from its patch neighbours before the dilation and
+    drops them after, and the peaks are the maxima over 'patch'."""
     peak = A.amax(dim=(-2, -1), keepdim=True)
-    return dilate(A > torch.clamp(thr * peak, min=0.0), radius)
+    if mesh is None:
+        return dilate(A > torch.clamp(thr * peak, min=0.0), radius)
+    peak = comm.all_reduce_max(peak, mesh.patch_group)
+    Hp = A.shape[-2]
+    Ap = comm.halo_rows(A, radius, mesh)
+    return dilate(Ap > torch.clamp(thr * peak, min=0.0),
+                  radius)[..., radius:radius + Hp, :]
 
 
 def search_locations_ellipse(A: torch.Tensor, dist: float = 3.0,

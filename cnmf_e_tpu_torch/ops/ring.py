@@ -21,17 +21,21 @@ from cnmf_e_tpu_torch.ops.filters import box_downsample, resize_linear
 from cnmf_e_tpu_torch.ops.noise import noise_psd_frames
 from cnmf_e_tpu_torch.ops.ring_kernels import (apply_ring_stencil,
                                                ring_offsets)
+from cnmf_e_tpu_torch.parallel import comm
 
 
-def _neighbor_index(H: int, W: int, offsets: np.ndarray
+def _neighbor_index(H: int, W: int, offsets: np.ndarray,
+                    fov_rows: Optional[Tuple[int, int]] = None
                     ) -> Tuple[np.ndarray, np.ndarray]:
     """Flat gather indices (H*W, R) into the zero-padded (H+2m)*(W+2m)
-    frame, and the in-FOV validity mask (H*W, R)."""
+    frame, and the in-FOV validity mask (H*W, R); ``fov_rows``: the rows
+    [lo, hi) of the H that lie in the field of view (default all)."""
     m = int(np.abs(offsets).max())
+    lo, hi = (0, H) if fov_rows is None else fov_rows
     yy, xx = np.mgrid[0:H, 0:W]
     ny = yy.reshape(-1, 1) + offsets[None, :, 0]
     nx = xx.reshape(-1, 1) + offsets[None, :, 1]
-    valid = (ny >= 0) & (ny < H) & (nx >= 0) & (nx < W)
+    valid = (ny >= lo) & (ny < hi) & (nx >= 0) & (nx < W)
     flat = (ny + m) * (W + 2 * m) + (nx + m)
     return flat.astype(np.int64), valid
 
@@ -46,7 +50,10 @@ def fit_ring_weights(Bf: torch.Tensor, H: int, W: int, radius: int,
                      ridge_eps: float = 1e-5, chunk: int = 1024,
                      mask: Optional[torch.Tensor] = None,
                      intercept: bool = True,
-                     neighbor_cutoff: float = 1.0) -> RingWeights:
+                     neighbor_cutoff: float = 1.0,
+                     rows: Optional[Tuple[int, int]] = None,
+                     fov_rows: Optional[Tuple[int, int]] = None
+                     ) -> RingWeights:
     """Fit every pixel's ring regression. Bf: (T', H, W), centred, clamped
     and frame-subsampled by the caller. Ridge: (G + eps tr(G) I) w = X y
     over the augmented [ring, 1] design (``fit_ring_model.m:104``).
@@ -58,17 +65,26 @@ def fit_ring_weights(Bf: torch.Tensor, H: int, W: int, radius: int,
     ``neighbor_cutoff < 1``: keep only the neighbours whose slope
     Xy / diag(G) is at most that per-pixel linear quantile
     (``local_background.m:118-125``); the others get a unit diagonal and
-    a zero right-hand side, so their weight solves to 0."""
+    a zero right-hand side, so their weight solves to 0.
+
+    ``rows``: fit only the pixels of Bf's rows [r0, r1) and return their
+    weights ((r1 - r0) W of them); ``fov_rows``: Bf's rows that lie in the
+    field of view (taps on the others are out of it). A mesh rank fits
+    its slab from Bf with a halo of ring rows this way
+    (``models/streaming.py``)."""
     T = Bf.shape[0]
     dev = Bf.device
     offsets = ring_offsets(radius)
     R = offsets.shape[0]
     m = int(np.abs(offsets).max())
-    idx, valid = _neighbor_index(H, W, offsets)
-    d = H * W
+    idx, valid = _neighbor_index(H, W, offsets, fov_rows)
+    r0, r1 = (0, H) if rows is None else rows
+    idx, valid = idx[r0 * W:r1 * W], valid[r0 * W:r1 * W]
+    d = (r1 - r0) * W
     Bf_flat = F.pad(Bf, (m, m, m, m)).reshape(T, -1)
-    y_flat = Bf.reshape(T, d)
-    m_flat = None if mask is None else mask.to(torch.float32).reshape(T, d)
+    y_flat = Bf[:, r0:r1].reshape(T, d)
+    m_flat = (None if mask is None
+              else mask[:, r0:r1].to(torch.float32).reshape(T, d))
     idx_t = torch.as_tensor(idx, device=dev)
     valid_t = torch.as_tensor(valid, device=dev)
     TB = min(512, T)
@@ -133,13 +149,29 @@ def fit_ring_weights(Bf: torch.Tensor, H: int, W: int, radius: int,
 
 
 def apply_ring(weights: RingWeights, X: torch.Tensor, H: int, W: int,
-               radius: int, include_intercept: bool = True) -> torch.Tensor:
+               radius: int, include_intercept: bool = True,
+               mesh=None) -> torch.Tensor:
     """The ring prediction W X (+ w0) of a (T, H, W) movie. Every ring
     apply of the port goes through the stencil kernel K6 (CUDA tensors)
     or its plain version (CPU tensors); without the intercept, w0 is
-    zeros, as ``ring_apply_auto`` passes it (``pallas_ring.py:167-170``)."""
+    zeros, as ``ring_apply_auto`` passes it (``pallas_ring.py:167-170``).
+
+    ``mesh``: X, w and w0 are this rank's blocks (T/frame, H/patch, W)
+    and (H/patch W, ...) of an H-row field of view. The slab takes the
+    ring's reach in rows from its patch neighbours (``comm.halo_rows``),
+    K6 runs on the padded slab with zero weights on the halo rows, and
+    the halo rows of the result are dropped."""
     w0 = weights.w0 if include_intercept else torch.zeros_like(weights.w0)
-    return apply_ring_stencil(weights.w, w0, X, H, W, radius)
+    if mesh is None:
+        return apply_ring_stencil(weights.w, w0, X, H, W, radius)
+    Hp = X.shape[1]
+    reach = int(np.abs(ring_offsets(radius)[:, 0]).max())
+    Xp = comm.halo_rows(X, reach, mesh)
+    pad = reach * W
+    out = apply_ring_stencil(F.pad(weights.w, (0, 0, pad, pad)),
+                             F.pad(w0, (pad, pad)), Xp, Hp + 2 * reach, W,
+                             radius)
+    return out[:, reach:reach + Hp].contiguous()
 
 
 def fit_ring_model(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,

@@ -1,2 +1,2 @@
-"""The chained model-update step (port of ``cnmf_e_tpu/parallel``, one
-device only so far)."""
+"""The chained model-update step and the (patch, frame) mesh of
+``torch.distributed`` ranks it runs on (port of ``cnmf_e_tpu/parallel``)."""

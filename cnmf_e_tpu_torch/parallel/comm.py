@@ -1,0 +1,177 @@
+"""The collectives of the (patch, frame) mesh, written out.
+
+The JAX package leaves them to GSPMD, which inserts them where a sharded
+contraction or stencil needs them (``cnmf_e_tpu/parallel/step.py:120-124,
+198-202, 262-267``). The port calls them by name on ``torch.distributed``
+process groups:
+
+  * :func:`psum` — the sum of a Gram or a partial sum over the 'frame' or
+    the 'patch' axis of a :class:`~cnmf_e_tpu_torch.parallel.mesh.Mesh`
+    (identity without a mesh);
+  * :func:`all_gather_cat` — the blocks of every member, concatenated
+    along one dimension, sizes equal or given;
+  * :func:`halo_rows` — a slab's rows [h0 - r, h1 + r) from its patch
+    neighbours, zeros outside the field of view, across several slabs
+    when a slab holds fewer than r rows;
+  * :func:`traces_to_neurons` / :func:`traces_to_frames` — the trace
+    reshard: K over 'patch' with whole traces (the deconvolution), and
+    back to T over 'frame';
+  * :func:`broadcast_object` — a picklable object from rank 0.
+
+Transport: the functions use three collectives, all-reduce, broadcast and
+all-gather, which both backends carry with CUDA tensors as they are:
+NCCL on the card, gloo through its own host buffers. Gloo aborts the
+process (it does not raise) on all-to-all and on send/recv of CUDA
+tensors, so the halo exchange is an all-gather of the slabs' edge rows;
+and its own CUDA all-gather beat a copy through pinned host buffers made
+here (``scripts_torch/gloo_cuda_probe.py`` measures both), so nothing is
+staged by hand. ``STATS`` counts the bytes each rank hands to the
+collectives, the host seconds spent inside these functions (waiting for
+the other ranks included) and their calls.
+"""
+
+from __future__ import annotations
+
+import pickle
+import time
+from typing import Optional, Sequence
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+STATS = {"bytes": 0, "seconds": 0.0, "calls": 0}
+
+
+def reset_stats() -> None:
+    STATS.update(bytes=0, seconds=0.0, calls=0)
+
+
+class _counted:
+    """Counts one collective call of ``nbytes`` and its host seconds."""
+
+    def __init__(self, nbytes: int):
+        STATS["bytes"] += nbytes
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        STATS["seconds"] += time.perf_counter() - self.t0
+        STATS["calls"] += 1
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _reduce(x: torch.Tensor, group, op) -> torch.Tensor:
+    x = x.contiguous()
+    with _counted(_nbytes(x)):
+        dist.all_reduce(x, op=op, group=group)
+    return x
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the members of ``group`` (in place where
+    ``x`` is contiguous; the result is returned)."""
+    return _reduce(x, group, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the members of ``group``."""
+    return _reduce(x, group, dist.ReduceOp.MAX)
+
+
+def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``x`` summed over the mesh axis ``axis`` ("frame" or "patch");
+    ``x`` unchanged without a mesh."""
+    return x if mesh is None else all_reduce_sum(x, mesh.group(axis))
+
+
+def all_gather_cat(x: torch.Tensor, dim: int, group,
+                   sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Every member's ``x``, in rank order, concatenated along ``dim``.
+    ``sizes``: each member's extent along ``dim`` where they differ
+    (default: all equal to this one's); shorter blocks travel
+    zero-padded."""
+    n = dist.get_world_size(group)
+    if sizes is None:
+        sizes = [x.shape[dim]] * n
+    m = max(sizes)
+    if x.shape[dim] < m:
+        x = F.pad(x, [0, 0] * (x.dim() - 1 - dim % x.dim())
+                  + [0, m - x.shape[dim]])
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    with _counted(_nbytes(x)):
+        dist.all_gather(parts, x, group=group)
+    return torch.cat([p.narrow(dim, 0, s) for p, s in zip(parts, sizes)],
+                     dim=dim)
+
+
+def halo_rows(x: torch.Tensor, r: int, mesh) -> torch.Tensor:
+    """The slab ``x`` (..., Hp, W), this rank's rows [h0, h1) of the
+    field of view, extended by the ``r`` rows above and below it: rows
+    [h0 - r, h1 + r), from the patch neighbours, zeros outside the field
+    of view. Where a slab holds fewer than ``r`` rows the halo spans
+    several slabs. One all-gather of every slab's edge rows over 'patch'."""
+    if r <= 0:
+        return x
+    Hp = x.shape[-2]
+    n, p = mesh.n_patch, mesh.p
+    e = min(r, Hp)
+    edges = torch.stack([x[..., :e, :], x[..., Hp - e:, :]])
+    # (n, 2, ..., e, W): every patch rank's top and bottom edge rows
+    allp = all_gather_cat(edges[None], 0, mesh.patch_group)
+    hops = -(-r // e)
+    zeros = torch.zeros_like(edges[0])
+    above = torch.cat([allp[q, 1] if q >= 0 else zeros
+                       for q in range(p - hops, p)], dim=-2)
+    below = torch.cat([allp[q, 0] if q < n else zeros
+                       for q in range(p + 1, p + 1 + hops)], dim=-2)
+    return torch.cat([above[..., above.shape[-2] - r:, :], x,
+                      below[..., :r, :]], dim=-2)
+
+
+def traces_to_neurons(x: torch.Tensor, mesh) -> torch.Tensor:
+    """(K, T/frame) traces to this patch rank's K/n_patch whole traces
+    (K/n_patch, T): its rows, gathered over 'frame'. ``x`` unchanged
+    without a mesh."""
+    if mesh is None:
+        return x
+    k0, k1 = mesh.neurons(x.shape[0])
+    return all_gather_cat(x[k0:k1], 1, mesh.frame_group)
+
+
+def traces_to_frames(x: torch.Tensor, T: int, mesh) -> torch.Tensor:
+    """The inverse of :func:`traces_to_neurons`: (K/n_patch, T) whole
+    traces back to (K, T/frame), this rank's frames of every neuron,
+    gathered over 'patch' (every member of a patch group holds the same
+    frames)."""
+    if mesh is None:
+        return x
+    t0, t1 = mesh.frames(T)
+    return all_gather_cat(x[:, t0:t1], 0, mesh.patch_group)
+
+
+def broadcast_object(obj, mesh):
+    """Rank 0's ``obj`` on every rank of the mesh (pickled onto a byte
+    tensor: on the card under NCCL, on the host under gloo)."""
+    dev = mesh.device if dist.get_backend() == "nccl" else \
+        torch.device("cpu")
+    if mesh.rank == 0:
+        data = torch.frombuffer(bytearray(pickle.dumps(obj)),
+                                dtype=torch.uint8).to(dev)
+        size = torch.tensor([data.numel()], dtype=torch.int64, device=dev)
+    else:
+        size = torch.zeros(1, dtype=torch.int64, device=dev)
+    with _counted(_nbytes(size)):
+        dist.broadcast(size, src=0)
+    if mesh.rank != 0:
+        data = torch.empty(int(size.item()), dtype=torch.uint8, device=dev)
+    with _counted(_nbytes(data)):
+        dist.broadcast(data, src=0)
+    if mesh.rank == 0:
+        return obj
+    return pickle.loads(data.cpu().numpy().tobytes())

@@ -16,8 +16,30 @@ frozen background:
 
 The ``make_*`` functions return plain functions (closures) in place of
 the JAX package's jitted programs, and the chain is a Python loop in place
-of ``fori_loop``/``cond``. Not ported: the ``mesh`` (multi-device) branch,
-which raises ``NotImplementedError``, and the ``dots`` precision modes.
+of ``fori_loop``/``cond``. Not ported: the ``dots`` precision modes.
+
+On a :class:`~cnmf_e_tpu_torch.parallel.mesh.Mesh` every rank runs the
+same code on its blocks (``parallel/mesh.py``'s layout: Y and the ring
+weights split over 'patch' rows and 'frame', C over 'frame') with the
+collectives GSPMD inserts in the JAX package written out
+(``parallel/comm.py``; they are the identity without a mesh):
+
+  * projection: the ring apply takes its halo rows from the patch
+    neighbours (``ops/ring.py::apply_ring``);
+  * spatial: C's mean, V = Cc Cc^T and U = Cc Ysig summed over 'frame',
+    then K1 on the rank's pixels (the spatial update is independent per
+    pixel);
+  * temporal: Vt = A A^T and Ut = A Ysig^T summed over 'patch', then K1 on
+    the rank's frames (independent per frame);
+  * baseline, noise and OASIS on whole traces: each patch rank gathers
+    its K/n_patch rows over 'frame', and the results go back to the
+    frame slabs over 'patch' (``comm.traces_to_neurons`` / ``_frames``);
+  * the coloured step dilates the footprints with a halo and sums the
+    overlap counts over 'patch', so every rank colours the same graph.
+
+K, H and T must divide over their axes (a ValueError names the one that
+does not), and ``mxu=True`` takes no mesh, as in the JAX package, whose
+banded MXU stencil runs on one device only (``step.py:74-79``).
 """
 
 from __future__ import annotations
@@ -41,6 +63,8 @@ from cnmf_e_tpu_torch.ops.ring import apply_ring
 from cnmf_e_tpu_torch.ops.ring_kernels import (apply_ring_mxu_flat,
                                                ring_dense_bands)
 from cnmf_e_tpu_torch.ops.stats import submedian_mean
+from cnmf_e_tpu_torch.parallel import comm
+from cnmf_e_tpu_torch.parallel.mesh import check_divisible
 
 
 @dataclass
@@ -59,10 +83,11 @@ class StepState:
         return dataclasses.replace(self, **kw)
 
 
-def _single_device(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("the multi-device (mesh) step is not "
-                                  "ported yet; pass mesh=None")
+def _check_mesh(mesh, H: int, T: int, mxu: Optional[bool]) -> None:
+    check_divisible(mesh, H=H, T=T)
+    if mesh is not None and mxu:
+        raise ValueError("mxu=True runs the banded stencil on one device; "
+                         "a mesh takes the exact stencil (mxu=None)")
 
 
 def make_bg_projection(mesh, H: int, W: int, T: int, radius: int,
@@ -75,8 +100,8 @@ def make_bg_projection(mesh, H: int, W: int, T: int, radius: int,
     bf16 bands and runs the banded product (K5), about 1e-3 relative error
     on B. ``gram_dtype``: None or "float32" keeps Ysig in f32;
     "bfloat16" stores it in bf16 (the HALS Grams then take its bf16 values
-    upcast to f32)."""
-    _single_device(mesh)
+    upcast to f32). ``mesh``: Y and the state are this rank's blocks."""
+    _check_mesh(mesh, H, T, mxu)
     if gram_dtype not in (None, "float32", "bfloat16"):
         raise ValueError(f"gram_dtype {gram_dtype!r}")
     p_dtype = torch.bfloat16 if gram_dtype == "bfloat16" else torch.float32
@@ -84,13 +109,13 @@ def make_bg_projection(mesh, H: int, W: int, T: int, radius: int,
     def proj(Y: torch.Tensor, st: StepState) -> torch.Tensor:
         K = st.A.shape[0]
         Q = Y - st.b0[None]
-        X = Q - (st.C.T @ st.A.reshape(K, H * W)).reshape(T, H, W)
+        X = Q - (st.C.T @ st.A.reshape(K, -1)).reshape(Y.shape)
         weights = RingWeights(w=st.ring_w, w0=st.ring_w0)
         if mxu:
             bands = ring_dense_bands(weights, H, W, radius)
             WX = apply_ring_mxu_flat(bands, st.ring_w0, X, H, W, radius)
-        else:
-            WX = apply_ring(weights, X, H, W, radius)        # W(X) + w0
+        else:                                               # W(X) + w0
+            WX = apply_ring(weights, X, H, W, radius, mesh=mesh)
         return (Q - WX).to(p_dtype)
 
     return proj
@@ -119,15 +144,15 @@ def make_hals_iteration(mesh, H: int, W: int, T: int, radius: int,
     masks and the colouring are frozen for the call (one host colouring
     per call); the returned state is in the caller's neuron order.
     Otherwise the sweeps run in neuron order, 16 rows a step, unmasked.
-    ``deconv`` and ``mxu`` are accepted for the JAX signature and unused.
+    ``deconv`` is accepted for the JAX signature and unused. ``mesh``:
+    Ysig and the state are this rank's blocks.
     """
-    _single_device(mesh)
-    d = H * W
+    _check_mesh(mesh, H, T, mxu)
 
     def one_iteration(Ysig, st: StepState, do_deconv: bool, mask, sched
                       ) -> StepState:
         K = st.A.shape[0]
-        Pf = Ysig.reshape(T, d)
+        Pf = Ysig.reshape(Ysig.shape[0], -1)                 # (T, d) local
         if Pf.dtype == torch.bfloat16:
             # bf16 operands, f32 products: round to bf16, compute in f32
             Pg = Pf.to(torch.float32)
@@ -139,27 +164,37 @@ def make_hals_iteration(mesh, H: int, W: int, T: int, radius: int,
 
         # spatial: U = Ysig Cc^T with the uncentred Ysig — its mean term
         # vanishes against the centred Cc (HALS_spatial.m:28-32)
-        Cc = st.C - st.C.mean(dim=1, keepdim=True)
-        V = Cc @ Cc.T
-        U = to_gram(Cc) @ Pg                                  # (K, d)
-        Ar = hals_spatial_sweeps_rows(U, V, st.A.reshape(K, d), mask=mask,
+        Cc = st.C - comm.psum(st.C.sum(dim=1, keepdim=True), mesh,
+                              "frame") / T
+        V = comm.psum(Cc @ Cc.T, mesh, "frame")
+        U = comm.psum(to_gram(Cc) @ Pg, mesh, "frame")        # (K, d)
+        Ar = hals_spatial_sweeps_rows(U, V, st.A.reshape(K, -1), mask=mask,
                                       n_iter=n_hals, block=block,
                                       schedule=sched)
 
         # temporal: the mask-overlap schedule certifies Vt's zeros too
-        Vt = Ar @ Ar.T
-        Ut = to_gram(Ar) @ Pg.T                               # (K, T)
+        Vt = comm.psum(Ar @ Ar.T, mesh, "patch")
+        Ut = comm.psum(to_gram(Ar) @ Pg.T, mesh, "patch")     # (K, T)
         C_raw = hals_temporal_sweeps(Ut, Vt, st.C, n_iter=n_hals,
                                      schedule=sched, block=block)
-        C_raw = C_raw - submedian_mean(C_raw, dim=-1)[:, None]
 
+        # baseline and deconvolution on whole traces: this patch rank's
+        # K / n_patch of them under a mesh
+        rows = comm.traces_to_neurons(C_raw, mesh)
+        base = submedian_mean(rows, dim=-1)
         if do_deconv:
-            res = foopsi_ar1(C_raw, st.g, smin=smin, sn=noise_psd(C_raw),
-                             optimize_b=False)
-            C, S = res.c, res.s
-        else:
+            rows = rows - base[:, None]
+            k0, k1 = (0, K) if mesh is None else mesh.neurons(K)
+            res = foopsi_ar1(rows, st.g[k0:k1], smin=smin,
+                             sn=noise_psd(rows), optimize_b=False)
+            C = comm.traces_to_frames(res.c, T, mesh)
+            S = comm.traces_to_frames(res.s, T, mesh)
+        if mesh is not None:
+            base = comm.all_gather_cat(base, 0, mesh.patch_group)
+        C_raw = C_raw - base[:, None]
+        if not do_deconv:
             C, S = torch.clamp(C_raw, min=0.0), st.S
-        return st.replace(A=Ar.reshape(K, H, W), C=C, C_raw=C_raw, S=S)
+        return st.replace(A=Ar.reshape(st.A.shape), C=C, C_raw=C_raw, S=S)
 
     def run_chain(Ysig, st: StepState, mask=None, sched=None) -> StepState:
         for i in range(chain):
@@ -169,11 +204,13 @@ def make_hals_iteration(mesh, H: int, W: int, T: int, radius: int,
         return st
 
     def iterate(Ysig: torch.Tensor, st: StepState) -> StepState:
+        K = st.A.shape[0]
+        check_divisible(mesh, K=K)
         if not colored:
             return run_chain(Ysig, st)
-        K = st.A.shape[0]
-        M = search_locations_dilate(st.A, radius=mask_dilate).reshape(K, d)
-        colors = greedy_color(overlap_adjacency(M))
+        M = search_locations_dilate(st.A, radius=mask_dilate,
+                                    mesh=mesh).reshape(K, -1)
+        colors = greedy_color(overlap_adjacency(M, mesh))
         order = torch.argsort(colors, stable=True)
         inverse = torch.argsort(order)
         sched = class_step_schedule(colors[order], block=color_block)
@@ -198,7 +235,9 @@ def make_update_step(mesh, H: int, W: int, T: int, radius: int,
     ``chain`` iterations against it (``demo_large_data_1p.m:199-213``:
     the background once, then spatial/temporal updates against the fixed
     B). Arguments as :func:`make_bg_projection` and
-    :func:`make_hals_iteration`."""
+    :func:`make_hals_iteration`; under a ``mesh``, ``H`` and ``T`` are the
+    full movie's and ``step`` takes and returns this rank's blocks
+    (``convert.shard_step_state`` / ``gather_step_state``)."""
     proj = make_bg_projection(mesh, H, W, T, radius, mxu=mxu,
                               gram_dtype=gram_dtype)
     iterate = make_hals_iteration(mesh, H, W, T, radius, n_hals=n_hals,

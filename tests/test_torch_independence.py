@@ -169,6 +169,23 @@ def test_the_import_scan_covers_the_2p_modules(path):
     assert os.path.join("cnmf_e_tpu_torch", path) in PORT_FILES
 
 
+# the modules of the mesh slice: the import scan above covers each
+SLICE_MESH = ["parallel/comm.py", "parallel/mesh.py", "parallel/launch.py",
+              "parallel/multihost.py", "parallel/_selftest.py"]
+
+
+@pytest.mark.parametrize("path", SLICE_MESH)
+def test_the_import_scan_covers_the_mesh_modules(path):
+    assert os.path.join("cnmf_e_tpu_torch", path) in PORT_FILES
+
+
+def test_mesh_entry_points_default_to_the_card():
+    from cnmf_e_tpu_torch.parallel.launch import spawn
+    from cnmf_e_tpu_torch.parallel.mesh import make_mesh
+    for fn in (make_mesh, spawn):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
 def test_geweke_copy_agrees():
     """The MCMC convergence z-score is host numpy in both packages; the
     port keeps its own copy."""

@@ -8,6 +8,8 @@ the chained run is held to the chain-drift bar of
 ``scripts_dev/chain_drift.py`` (C max-rel drift <= 1e-3).
 """
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -367,11 +369,16 @@ def test_block_grid_schedule_matches_pallas_grid(K, block):
 
 
 def test_mesh_raises_and_state_roundtrip(problem):
+    """A mesh that H does not divide over, and mxu=True with a mesh, raise
+    a ValueError (the mesh branch itself: tests/test_torch_mesh*.py)."""
     H, W, T, K, radius, Y, d = problem
     for build in (tstep.make_bg_projection, tstep.make_hals_iteration,
                   tstep.make_update_step):
-        with pytest.raises(NotImplementedError):
-            build(object(), H, W, T, radius)
+        with pytest.raises(ValueError, match=f"H = {H}"):
+            build(SimpleNamespace(n_patch=3, n_frame=1), H, W, T, radius)
+        with pytest.raises(ValueError, match="mxu"):
+            build(SimpleNamespace(n_patch=2, n_frame=2), H, W, T, radius,
+                  mxu=True)
     back = step_state_to_numpy(step_state_from_numpy(d, device="cpu"))
     assert sorted(back) == sorted(d)
     for k, v in d.items():

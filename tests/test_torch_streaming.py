@@ -12,6 +12,7 @@ no-bootstrap and the resume paths.
 
 import dataclasses
 import shutil
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +27,7 @@ from cnmf_e_tpu.ops.ring import RingWeights as JaxRingWeights
 from cnmf_e_tpu.utils.metrics import detection_f1
 from cnmf_e_tpu.utils.simulate import simulate_movie_store
 from cnmf_e_tpu_torch.convert import params_from_dict
-from cnmf_e_tpu_torch.io.store import MovieStore
+from cnmf_e_tpu_torch.io.store import MovieStore, distribute_movie
 from cnmf_e_tpu_torch.models import streaming
 from cnmf_e_tpu_torch.models.state import RingWeights
 from cnmf_e_tpu_torch.ops.ring_kernels import ring_offsets
@@ -337,5 +338,13 @@ def test_prefetch_blocks_order_slicing_and_dtype(tmp_path):
 
 
 def test_mesh_branch_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        streaming.fit_streaming(None, mesh=object(), device="cpu")
+    """The mesh branch is ported (tests/test_torch_mesh_streaming.py); a
+    mesh that the store's H does not divide over raises a ValueError that
+    names H."""
+    np.save(str(tmp_path / "m.npy"), np.zeros((10, 5, 4), np.float32))
+    store = distribute_movie(str(tmp_path / "m.npy"), str(tmp_path / "s"),
+                             frames_per_block=5)
+    with pytest.raises(ValueError, match="H = 5"):
+        streaming.fit_streaming(
+            store, mesh=SimpleNamespace(n_patch=2, n_frame=1, rank=0),
+            device="cpu")
