@@ -118,7 +118,20 @@ Phases (each fails the script when its check fails):
      or 8x the drift of phase 6's fit rerun with smaller chunks (its sums
      in another order) where that is larger; the wall, stage seconds and
      peak memory of each rank printed.
-No plain kernel version may run on the paths of phases 4 to 10, and
+ 11. the in-memory fit on the mesh: phase 4's movie and parameters through
+     CNMFE(mesh=...).fit on a 2 x 2 mesh of gloo ranks sharing the card
+     (a warm-up on a 64x64 movie first; each rank reads only its block):
+     F1 >= 0.8, n_active equal to phase 4's, every rank's active mask the
+     same, no pickled state sent, every matched footprint and trace at
+     correlation >= 0.999 with phase 4's state (or 8x phase 4's own drift
+     under a one-ulp change of Y where that is larger, both printed), each
+     rank's peak memory at most half of phase 4's; K1, the OASIS solve
+     entry and K6 launched on every rank, no plain version; the wall,
+     stage seconds, collective bytes and seconds, and peak memory of each
+     rank printed; 11' the same fit on a 1 x 1 NCCL mesh against
+     mesh=None in one process (bit-identical, or within 1e-6 of scale
+     with the difference printed).
+No plain kernel version may run on the paths of phases 4 to 11, and
 their OASIS kernels must launch through the solve entry.
 The line before the last holds one JSON object with the per-kernel
 results; the last line is {"ok": true, "device": {...}}.
@@ -1133,7 +1146,8 @@ def phase4_full():
           flush=True)
     check_path(launches, PATH_EXACT, "fit")
     require(f1["f1"] >= 0.8, f"F1 {f1['f1']:.4f} < 0.8")
-    return launches
+    # phase 11's reference: the fitted neurons, the wall and the peak
+    return launches, dict(A=A, C=C, wall=wall, peak=peak)
 
 
 # ------------------------------------------------------------------ #
@@ -2488,6 +2502,141 @@ def phase10_mesh(tmp: str, step_outs: dict, step_ms: dict, stream_ref,
     return per_path
 
 
+# ------------------------------------------------------------------ #
+# phase 11: the in-memory fit on the (patch, frame) mesh
+# ------------------------------------------------------------------ #
+FIT_CORR = 0.999            # tests/test_sharding.py's trace bar
+
+
+def matched_corr(A, C, A_ref, C_ref) -> dict:
+    """The least correlation of a footprint and of a trace with its
+    counterpart, the neurons matched one to one by footprint."""
+    pairs = match_by_footprint(A, A_ref)
+    return dict(A=min(p[2] for p in pairs),
+                C=min(float(np.corrcoef(C[i], C_ref[j])[0, 1])
+                      for i, j, _ in pairs))
+
+
+def fit_self_drift(Y, params, ref) -> dict:
+    """How far phase 4's one-process fit moves when Y moves by one ulp up
+    and down (np.nextafter): one less the least matched footprint and
+    trace correlation with phase 4's state, and the neuron counts."""
+    out = dict(A=0.0, C=0.0, n=[])
+    for to in (np.inf, -np.inf):
+        st = CNMFE(params, device=DEV).fit(torch.as_tensor(
+            np.nextafter(Y, np.float32(to)), device=DEV), n_outer=2)
+        n = int(st.n_active())
+        out["n"].append(n)
+        c = matched_corr(st.A[:n].cpu().numpy(), st.C[:n].cpu().numpy(),
+                         ref["A"], ref["C"])
+        out = dict(out, A=max(out["A"], 1 - c["A"]),
+                   C=max(out["C"], 1 - c["C"]))
+    return out
+
+
+def phase11_fit_mesh(tmp: str, ref: dict):
+    """CNMFE(mesh=...).fit of phase 4's movie and parameters on a 2 x 2
+    mesh of gloo ranks sharing the card (11), then on a 1 x 1 NCCL mesh
+    against mesh=None (11'). ``ref``: phase 4's (A, C, wall, peak).
+    Returns the launches of each counted run, summed over its ranks."""
+    gt, params = fit_problem()
+    self_drift = fit_self_drift(gt.Y, params, ref)
+    torch.cuda.empty_cache()
+    y_path = os.path.join(tmp, "fit_Y.npy")
+    warm_path = os.path.join(tmp, "fit_warm.npy")
+    np.save(y_path, gt.Y)
+    np.save(warm_path, simulate_movie(
+        seed=3, H=64, W=64, T=2000, K=8, gSig=3.0, sn=0.1, bg_strength=1.0,
+        min_dist=9.0, spike_rate=0.02).Y)
+    pd = dataclasses.asdict(params)
+    card = torch.cuda.get_device_name(0)
+    per_path = {}
+
+    # 11: the 2 x 2 gloo mesh against phase 4's one-process fit
+    t0 = time.perf_counter()
+    infos = launch.spawn(_selftest.card_fit, 2, 2, backend="gloo",
+                         device="cuda", args=(y_path, warm_path, pd, 2),
+                         timeout=MESH_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    for rank, info in enumerate(infos):
+        check_rank_path(info, PATH_EXACT, f"mesh fit rank {rank}")
+    st = infos[0]["state"]
+    n = int(st["active"].sum())
+    A, C = st["A"][:n], st["C"][:n]
+    n_ref = ref["A"].shape[0]
+    agree = all(np.array_equal(i["active"], st["active"]) for i in infos)
+    finite = bool(np.isfinite(A).all() and np.isfinite(C).all())
+    f1 = detection_f1(A, gt.A)
+    corr = (matched_corr(A, C, ref["A"], ref["C"]) if n == n_ref
+            else dict(A=0.0, C=0.0))
+    bar = {k: min(FIT_CORR, 1 - 8 * self_drift[k]) for k in ("A", "C")}
+    walls = [round(i["wall"], 3) for i in infos]
+    peaks = [round(i["peak"] / 2**30, 3) for i in infos]
+    print(f"phase 11: CNMFE(mesh=...).fit preset_1p 256x256x2000 K_max=192 "
+          f"n_outer=2 on a 2 x 2 gloo mesh, 4 ranks on {card}, blocks "
+          f"{[i['block'] for i in infos]}: n_active {n} (phase 4: {n_ref}), "
+          f"F1 {f1['f1']:.4f} (precision {f1['precision']:.4f}, recall "
+          f"{f1['recall']:.4f}), every rank's active mask the same {agree}, "
+          f"finite {finite}; against phase 4's state the least matched "
+          f"footprint correlation {corr['A']:.6f}, trace {corr['C']:.6f}; "
+          f"phase 4's one-ulp self-drift 1 - corr: footprints "
+          f"{self_drift['A']:.3e}, traces {self_drift['C']:.3e} (n_active "
+          f"{self_drift['n']}); bars footprints {bar['A']:.6f}, traces "
+          f"{bar['C']:.6f}; wall per rank {walls} s against phase 4's "
+          f"{ref['wall']:.3f} s (one process), pickled broadcasts "
+          f"{[i['broadcasts'] for i in infos]}, spawn and both fits "
+          f"{spawn_s:.1f} s; peak memory per rank {peaks} GiB against phase "
+          f"4's {ref['peak'] / 2**30:.3f}; {ranks_line(infos)}", flush=True)
+    for rank, info in enumerate(infos):
+        stages = {k: round(v, 4) for k, v in info["stages"].items()}
+        in_comm = {k: [b, round(sec, 4)]
+                   for k, (b, sec) in info["stage_comm"].items()}
+        print(f"phase 11: rank {rank} stage seconds {json.dumps(stages)}; "
+              f"per stage, bytes handed to collectives and host seconds "
+              f"inside them {json.dumps(in_comm)}; launches "
+              f"{json.dumps(info['launches'])}", flush=True)
+    require(finite and agree, "mesh fit: non-finite values or ranks that "
+            "disagree on the active mask")
+    require(all(i["broadcasts"] == 0 for i in infos),
+            "the in-memory mesh fit sent a pickled state")
+    require(f1["f1"] >= 0.8, f"mesh fit F1 {f1['f1']:.4f} < 0.8")
+    require(n == n_ref, f"mesh fit n_active {n} != phase 4's {n_ref}")
+    require(all(corr[k] >= bar[k] for k in bar),
+            f"mesh fit differs from phase 4: {corr}, bars {bar}")
+    require(max(i["peak"] for i in infos) <= ref["peak"] / 2,
+            f"a mesh rank's peak memory {peaks} GiB is over half of phase "
+            f"4's {ref['peak'] / 2**30:.3f}")
+    per_path["fit_mesh"] = summed_launches(infos)
+
+    # 11': one NCCL rank, the mesh fit against mesh=None
+    t0 = time.perf_counter()
+    one = launch.spawn(_selftest.card_fit_identity, 1, 1, backend="nccl",
+                       device="cuda", args=(y_path, warm_path, pd, 2),
+                       timeout=MESH_TIMEOUT)[0]
+    m, none = one["mesh"], one["none"]
+    check_rank_path(m, PATH_EXACT, "NCCL mesh fit")
+    keys = [k for k in none["state"] if k != "active"]
+    same = all(np.array_equal(m["state"][k], none["state"][k])
+               for k in none["state"])
+    diff = {k: float(np.abs(m["state"][k].astype(np.float64)
+                            - none["state"][k]).max()
+                     / max(float(np.abs(none["state"][k]).max()), 1e-30))
+            for k in keys}
+    print(f"phase 11': CNMFE.fit on a 1 x 1 NCCL mesh against mesh=None, "
+          f"one process: bit-identical {same}, max abs difference / scale "
+          f"{json.dumps(diff)}; active masks equal "
+          f"{np.array_equal(m['state']['active'], none['state']['active'])};"
+          f" wall {m['wall']:.3f} s against {none['wall']:.3f} s, "
+          f"{m['comm']['calls']} collectives, {m['comm']['seconds']:.4f} s "
+          f"in them; spawn and the fits {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    require(np.array_equal(m["state"]["active"], none["state"]["active"])
+            and (same or max(diff.values()) <= 1e-6),
+            f"NCCL mesh fit differs from mesh=None: {diff}")
+    per_path["fit_mesh_nccl"] = dict(m["launches"])
+    return per_path
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2527,7 +2676,8 @@ def main():
         print(f"phase seconds: {name} {seconds[name]}", flush=True)
         return out
 
-    per_path = {"fit": timed_phase("4", phase4_full)}
+    per_path = {}
+    per_path["fit"], fit_ref = timed_phase("4", phase4_full)
     step_paths, step_outs, step_ms = timed_phase("5", phase5_step)
     per_path.update(step_paths)
     timed_phase("5b", phase5b_consistency)
@@ -2538,12 +2688,13 @@ def main():
         per_path.update(timed_phase("7", phase7_cli, tmp))
         per_path.update(timed_phase("10", phase10_mesh, tmp, step_outs,
                                     step_ms, stream_ref))
+        per_path.update(timed_phase("11", phase11_fit_mesh, tmp, fit_ref))
     per_path.update(timed_phase("8", phase8_2p))
     per_path["local_ellipse"] = timed_phase("9", phase9_local)
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
 
-    # launches: the sum over the main-path runs of phases 4 to 10 (phase
-    # 10's summed over its ranks)
+    # launches: the sum over the main-path runs of phases 4 to 11 (phases
+    # 10 and 11 summed over their ranks)
     launches = {k: sum(p[k] for p in per_path.values())
                 for k in cuda_build.KERNELS}
     print(f"launches per main-path run: {json.dumps(per_path)}", flush=True)

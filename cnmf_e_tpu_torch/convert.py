@@ -8,7 +8,8 @@ and the low-rank background as ``bg_b``/``bg_f``, for every slot, so a
 round trip is lossless. ``step_state_from_numpy`` and
 ``step_state_to_numpy`` do the same for the update step's ``StepState``,
 and ``shard_step_state`` / ``gather_step_state`` carry one onto the ranks
-of a mesh and back.
+of a mesh and back, and ``shard_state`` (``state_blocks`` of a state already on the device)
+/ ``gather_state`` a ``CNMFEState``.
 Both functions put the state on the card unless the caller passes
 ``device="cpu"``. ``params_from_dict`` builds the port's
 :class:`~cnmf_e_tpu_torch.config.CNMFEParams` from the nested dict of any
@@ -119,6 +120,48 @@ def gather_step_state(st: StepState, mesh) -> dict:
            for k, (_, fn) in _STEP_SHARDS.items()}
     out["g"] = st.g.detach().cpu().numpy()
     return out
+
+
+def shard_state(d: dict, mesh) -> CNMFEState:
+    """This rank's blocks of a full ``CNMFEState`` given as a dict of numpy
+    arrays (:func:`state_from_numpy`'s keys), on the mesh's device."""
+    return state_blocks(state_from_numpy(d, device=mesh.device), mesh)
+
+
+def state_blocks(st: CNMFEState, mesh) -> CNMFEState:
+    """This rank's blocks of a full ``CNMFEState`` (``parallel/mesh.py``'s
+    layout: A, b0 and the ring weights split over 'patch' rows, the
+    traces over 'frame'; the per-neuron vectors replicated). The ring
+    weights' pixels are those of the grid they were fitted on; traces of
+    one frame (the placeholders of a state not yet deconvolved) stay
+    whole."""
+    h0, h1 = mesh.rows(st.A.shape[1])
+    kw = {}
+    for k in ("C", "C_raw", "S"):
+        tr = getattr(st, k)
+        if tr.shape[1] > 1:
+            t0, t1 = mesh.frames(tr.shape[1])
+            kw[k] = tr[:, t0:t1].contiguous()
+    if st.W is not None:
+        p0, p1 = mesh.rows(st.W.w.shape[0])
+        kw["W"] = RingWeights(w=st.W.w[p0:p1].contiguous(),
+                              w0=st.W.w0[p0:p1].contiguous())
+    if st.b is not None:
+        raise NotImplementedError("a low-rank background takes no mesh")
+    return st.replace(A=st.A[:, h0:h1].contiguous(),
+                      b0=st.b0[h0:h1].contiguous(), **kw)
+
+
+def gather_state(st: CNMFEState, mesh) -> CNMFEState:
+    """The full ``CNMFEState`` from every rank's blocks, on every rank (a
+    collective: every rank calls it)."""
+    kw = {k: mesh_mod.gather_traces(getattr(st, k), mesh)
+          for k in ("C", "C_raw", "S")}
+    if st.W is not None:
+        kw["W"] = RingWeights(w=mesh_mod.gather_image(st.W.w, mesh),
+                              w0=mesh_mod.gather_image(st.W.w0, mesh))
+    return st.replace(A=mesh_mod.gather_footprints(st.A, mesh),
+                      b0=mesh_mod.gather_image(st.b0, mesh), **kw)
 
 
 def _dataclass_from_dict(cls, d: dict):

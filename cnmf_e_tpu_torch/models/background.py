@@ -1,7 +1,11 @@
 """Background update and evaluation: the ring model or the event-masked
 local ring model (1p), or the low-rank svd/nmf model (2p) (port of
 ``cnmf_e_tpu/models/background.py``; reference
-``update_background_parallel.m``)."""
+``update_background_parallel.m``).
+
+``mesh``: the ring model on this rank's blocks (``ops/ring.py``); the
+state is this rank's blocks, and so is what each function returns. The
+local and the low-rank models take no mesh."""
 
 from __future__ import annotations
 
@@ -26,17 +30,29 @@ def _neuron_free(Y: torch.Tensor, state: CNMFEState) -> torch.Tensor:
                 ).reshape(T, H, W)
 
 
+def check_mesh_options(params: CNMFEParams) -> None:
+    """Raise NotImplementedError naming a background model that takes no
+    mesh."""
+    if params.background.model != "ring":
+        raise NotImplementedError(
+            f"background.model = {params.background.model!r} takes no "
+            f"mesh; the ring model does")
+
+
 def update_background(Y: torch.Tensor, state: CNMFEState,
                       params: CNMFEParams,
-                      sn_pix: Optional[torch.Tensor] = None) -> CNMFEState:
+                      sn_pix: Optional[torch.Tensor] = None,
+                      mesh=None) -> CNMFEState:
     """Refit the background model given the current (A, C). Y: (T, H, W)."""
     bp = params.background
+    if mesh is not None:
+        check_mesh_options(params)
     if bp.model == "ring":
         weights, b0, _ = fit_ring_model(
             Y, state.masked_A(), state.masked_C(), radius=bp.ring_radius,
             W_old=state.W, sn=sn_pix, thresh_outlier=bp.thresh_outlier,
             frame_cap_factor=bp.frame_cap_factor, ridge_eps=bp.ridge_eps,
-            ssub=bp.ssub)
+            ssub=bp.ssub, mesh=mesh)
         return state.replace(W=weights, b0=b0)
     if bp.model == "local":
         # on Ybg = Y - A C, so transients the event mask misses cannot
@@ -51,15 +67,17 @@ def update_background(Y: torch.Tensor, state: CNMFEState,
 
 
 def background_of(Y: torch.Tensor, state: CNMFEState,
-                  params: CNMFEParams) -> torch.Tensor:
+                  params: CNMFEParams, mesh=None) -> torch.Tensor:
     """The current background estimate B (T, H, W)."""
     bp = params.background
+    if mesh is not None:
+        check_mesh_options(params)
     if bp.model in ("ring", "local") and state.W is None:
         return torch.broadcast_to(state.b0[None], Y.shape)
     if bp.model == "ring":
         return reconstruct_ring_background(
             state.W, Y, state.masked_A(), state.masked_C(), state.b0,
-            radius=bp.ring_radius, ssub=bp.ssub)
+            radius=bp.ring_radius, ssub=bp.ssub, mesh=mesh)
     if bp.model == "local":
         # the stored weights' prediction, no refit:
         # B = W (Ybg - mean(Ybg) + 1) + b0 (local_background.m:148-150)
@@ -83,16 +101,16 @@ def background_of(Y: torch.Tensor, state: CNMFEState,
 
 
 def subtract_background(Y: torch.Tensor, state: CNMFEState,
-                        params: CNMFEParams) -> torch.Tensor:
+                        params: CNMFEParams, mesh=None) -> torch.Tensor:
     """Ysignal = Y - B, the input to the factor updates."""
-    return Y - background_of(Y, state, params)
+    return Y - background_of(Y, state, params, mesh=mesh)
 
 
 def residual_movie(Y: torch.Tensor, state: CNMFEState,
-                   params: CNMFEParams) -> torch.Tensor:
+                   params: CNMFEParams, mesh=None) -> torch.Tensor:
     """Y - B - A C: the input to the residual neuron pick
     (``initComponents_residual_parallel.m:189-199``)."""
     T, H, W = Y.shape
     A = state.masked_A()
     AC = (state.masked_C().T @ A.reshape(A.shape[0], -1)).reshape(T, H, W)
-    return subtract_background(Y, state, params) - AC
+    return subtract_background(Y, state, params, mesh=mesh) - AC

@@ -147,7 +147,8 @@ def fit_batches(batches: Sequence, params: Optional[CNMFEParams] = None,
                 n_outer: int = 1, spatial_sync: bool = True,
                 residual_pick: bool = True, verbose: bool = False,
                 run_log=None, resume_from: Optional[str] = None,
-                device="cuda") -> Tuple[CNMFEState, List[CNMFEState]]:
+                device="cuda",
+                mesh=None) -> Tuple[CNMFEState, List[CNMFEState]]:
     """Run batch-mode CNMF-E on ``device`` (the card unless the caller
     passes ``device="cpu"``).
 
@@ -155,7 +156,10 @@ def fit_batches(batches: Sequence, params: Optional[CNMFEParams] = None,
     MovieStore's ``iter_blocks()``). ``run_log`` / ``resume_from``: passed
     to the first batch's full fit; with a run_log, every later batch and
     the final state are snapshotted. Returns (state with concatenated
-    traces, list of per-batch states)."""
+    traces, list of per-batch states). ``mesh``: not taken;
+    ``CNMFE(mesh=...).fit`` fits one in-memory movie on a mesh."""
+    if mesh is not None:
+        raise NotImplementedError("fit_batches takes no mesh")
     params = params or CNMFEParams.preset_1p()
     device = torch.device(device)
     batches = list(batches)

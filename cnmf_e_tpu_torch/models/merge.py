@@ -11,6 +11,14 @@ highest-energy member, whose trace is then re-deconvolved.
 :func:`merge_neurons` finds components on the device (transitive closure
 by repeated squaring); :func:`merge_neurons_seq` fetches the adjacency
 once and labels its components on the host (:func:`connected_components`).
+
+``mesh``: the state is this rank's blocks. The statistics are sums over
+'patch' (centroids, A A^T, norms, the footprint peaks by
+``comm.argmax_rows``) and over 'frame' (the trace correlations; the
+spikes' difference takes the previous rank's last frame), so every rank
+holds the same (K, K) statistics and takes the same clusters. The
+rank-1 refit sums C_raw c^T over 'frame' and A a^T over 'patch'; the
+re-deconvolution runs on whole traces, K / n_patch a patch rank.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from cnmf_e_tpu_torch.config import CNMFEParams
 from cnmf_e_tpu_torch.models.state import CNMFEState
 from cnmf_e_tpu_torch.ops.noise import noise_psd
 from cnmf_e_tpu_torch.ops.oasis import deconvolve
+from cnmf_e_tpu_torch.parallel import comm
 
 _PLANES = {"dist_corr": 0, "dist_only": 1, "high_corr": 2}
 
@@ -60,51 +69,64 @@ def decay_times(state: CNMFEState) -> np.ndarray:
     return -1.0 / np.log(d)
 
 
-def _corr_rows(X: torch.Tensor) -> torch.Tensor:
-    Xc = X - X.mean(dim=1, keepdim=True)
-    n = torch.linalg.norm(Xc, dim=1) + 1e-12
-    return (Xc @ Xc.T) / torch.outer(n, n)
+def _corr_rows(X: torch.Tensor, mesh=None) -> torch.Tensor:
+    Xc = X - comm.frame_mean(X, 1, mesh, keepdim=True)
+    n = comm.norm(Xc, 1, mesh, "frame") + 1e-12
+    return comm.psum(Xc @ Xc.T, mesh, "frame") / torch.outer(n, n)
 
 
-def _merge_stats(state: CNMFEState) -> torch.Tensor:
+def _prev_frame(X: torch.Tensor, mesh) -> torch.Tensor:
+    """The column before this rank's first frame of (K, T/frame) traces:
+    zeros at the first frame, else the previous 'frame' rank's last."""
+    zeros = torch.zeros_like(X[:, :1])
+    if mesh is None or mesh.n_frame == 1:
+        return zeros
+    last = comm.all_gather_cat(X[:, -1:], 1, mesh.frame_group)
+    return last[:, mesh.f - 1:mesh.f] if mesh.f > 0 else zeros
+
+
+def _merge_stats(state: CNMFEState, mesh=None) -> torch.Tensor:
     """All pairwise merge statistics, stacked (10, K, K): dist_mean,
     corr_C, cos_A, corr_Craw, corr_S, energy, active, g1, g2, dist_max
     (rows 5-8 broadcast per-neuron vectors)."""
     K = state.K_max
     A3 = state.masked_A()
-    H, W = A3.shape[1:]
+    Hl, W = A3.shape[1:]
+    h0 = 0 if mesh is None else mesh.p * Hl
     dev = A3.device
-    mass = A3.sum(dim=(1, 2)) + 1e-12
-    cy = (A3 * torch.arange(H, dtype=A3.dtype, device=dev)[None, :, None]
-          ).sum(dim=(1, 2)) / mass
-    cx = (A3 * torch.arange(W, dtype=A3.dtype, device=dev)[None, None, :]
-          ).sum(dim=(1, 2)) / mass
+    mass = comm.psum(A3.sum(dim=(1, 2)), mesh, "patch") + 1e-12
+    yy = torch.arange(h0, h0 + Hl, dtype=A3.dtype, device=dev)
+    cy = comm.psum((A3 * yy[None, :, None]).sum(dim=(1, 2)), mesh,
+                   "patch") / mass
+    cx = comm.psum((A3 * torch.arange(W, dtype=A3.dtype, device=dev)[
+        None, None, :]).sum(dim=(1, 2)), mesh, "patch") / mass
 
     def pair_dist(cy, cx):
         dy = cy[:, None] - cy[None, :]
         dx = cx[:, None] - cx[None, :]
         return torch.sqrt(dy * dy + dx * dx)
 
-    pk = A3.reshape(K, -1).argmax(dim=1)
+    pk = comm.argmax_rows(A3, mesh)
     A = A3.reshape(K, -1)
-    na = torch.linalg.norm(A, dim=1) + 1e-12
-    Sdiff = torch.clamp(torch.diff(state.C_raw, dim=1, prepend=torch.zeros(
-        (K, 1), dtype=A3.dtype, device=dev)), min=0.0)
-    corr_S = torch.where((state.S != 0).any(), _corr_rows(state.S),
-                         _corr_rows(Sdiff))
-    energy = (state.A * state.A).sum(dim=(1, 2)) * \
-        (state.C_raw * state.C_raw).sum(dim=1)
+    na = comm.norm(A, 1, mesh, "patch") + 1e-12
+    Sdiff = torch.clamp(torch.diff(state.C_raw, dim=1, prepend=_prev_frame(
+        state.C_raw, mesh)), min=0.0)
+    any_s = comm.pmax((state.S != 0).any().to(torch.int32), mesh, "frame")
+    corr_S = torch.where(any_s > 0, _corr_rows(state.S, mesh),
+                         _corr_rows(Sdiff, mesh))
+    energy = comm.psum((state.A * state.A).sum(dim=(1, 2)), mesh, "patch") \
+        * comm.psum((state.C_raw * state.C_raw).sum(dim=1), mesh, "frame")
     g2 = (state.g[:, 1] if state.g.shape[1] > 1
           else torch.zeros(K, dtype=torch.float32, device=dev))
 
     def row(v):
         return torch.broadcast_to(v.to(torch.float32)[None, :], (K, K))
 
-    cos_A = (A @ A.T) / torch.outer(na, na)
+    cos_A = comm.psum(A @ A.T, mesh, "patch") / torch.outer(na, na)
     return torch.stack([
-        pair_dist(cy, cx), _corr_rows(state.C), cos_A,
-        _corr_rows(state.C_raw), corr_S, row(energy), row(state.active),
-        row(state.g[:, 0]), row(g2),
+        pair_dist(cy, cx), _corr_rows(state.C, mesh), cos_A,
+        _corr_rows(state.C_raw, mesh), corr_S, row(energy),
+        row(state.active), row(state.g[:, 0]), row(g2),
         pair_dist((pk // W).to(A3.dtype), (pk % W).to(A3.dtype))])
 
 
@@ -168,17 +190,18 @@ def merge_candidates_dist_only(state: CNMFEState, params: CNMFEParams,
     return _candidates(state, params, stats, _PLANES["dist_only"])
 
 
-def _merge_adjacency(state: CNMFEState, params: CNMFEParams
+def _merge_adjacency(state: CNMFEState, params: CNMFEParams, mesh=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The three candidate graphs (3, K, K) and the energy rank (K,) of
     every neuron (cluster survivor = highest rank)."""
-    st = _merge_stats(state)
+    st = _merge_stats(state, mesh)
     adj = torch.stack([_adjacency(state, params, st, p) for p in range(3)])
     rank = torch.argsort(torch.argsort(st[5][0], stable=True), stable=True)
     return adj, rank
 
 
-def _cluster_device(state: CNMFEState, params: CNMFEParams, plane: int):
+def _cluster_device(state: CNMFEState, params: CNMFEParams, plane: int,
+                    mesh=None):
     """Connected components and cluster bookkeeping on the device:
     reachability closes by ceil(log2 K) squarings of (adj | I).
 
@@ -186,7 +209,7 @@ def _cluster_device(state: CNMFEState, params: CNMFEParams, plane: int):
     valid (K//2,) bool, n_clusters scalar)."""
     K = state.K_max
     dev = state.A.device
-    st = _merge_stats(state)
+    st = _merge_stats(state, mesh)
     adj = _adjacency(state, params, st, plane)
     R = (adj | torch.eye(K, dtype=torch.bool, device=dev)).to(torch.float32)
     for _ in range(max(int(np.ceil(np.log2(max(K, 2)))), 1)):
@@ -206,8 +229,8 @@ def _cluster_device(state: CNMFEState, params: CNMFEParams, plane: int):
 
 
 def _merge_apply(state: CNMFEState, members: torch.Tensor,
-                 keep: torch.Tensor, valid: torch.Tensor, refit_iters: int
-                 ) -> Tuple[CNMFEState, torch.Tensor]:
+                 keep: torch.Tensor, valid: torch.Tensor, refit_iters: int,
+                 mesh=None) -> Tuple[CNMFEState, torch.Tensor]:
     """Apply all cluster merges: rank-1 refit of each valid cluster
     (``merge_neurons_dist_corr.m:180-187``) into its survivor slot, other
     members deactivated. Returns (state, merged_mask (K,) bool of slots
@@ -219,12 +242,12 @@ def _merge_apply(state: CNMFEState, members: torch.Tensor,
     a = members @ A
     c = C_raw[torch.clamp(keep, 0, K - 1)]
     for _ in range(refit_iters):
-        Wm = members * (C_raw @ c.T).T
-        a = torch.clamp(Wm @ A, min=0.0) / torch.clamp(
-            (c * c).sum(dim=1, keepdim=True), min=1e-12)
-        Vm = members * (A @ a.T).T
-        c = torch.clamp(Vm @ C_raw, min=0.0) / torch.clamp(
-            (a * a).sum(dim=1, keepdim=True), min=1e-12)
+        Wm = members * comm.psum(C_raw @ c.T, mesh, "frame").T
+        a = torch.clamp(Wm @ A, min=0.0) / torch.clamp(comm.psum(
+            (c * c).sum(dim=1, keepdim=True), mesh, "frame"), min=1e-12)
+        Vm = members * comm.psum(A @ a.T, mesh, "patch").T
+        c = torch.clamp(Vm @ C_raw, min=0.0) / torch.clamp(comm.psum(
+            (a * a).sum(dim=1, keepdim=True), mesh, "patch"), min=1e-12)
     # invalid clusters scatter into a spare row K that is dropped
     keep_slot = torch.where(valid, keep, K)
     member_of_valid = (valid.to(members.dtype) @ members) > 0
@@ -258,31 +281,44 @@ def _deconv_writeback(state: CNMFEState, merged_mask, c, s, b, g
 
 
 def _redeconvolve(state: CNMFEState, params: CNMFEParams,
-                  merged_mask: torch.Tensor) -> CNMFEState:
-    sn = noise_psd(state.C_raw)
-    res = deconvolve(state.C_raw, params.temporal.deconv, sn=sn)
-    return _deconv_writeback(state, merged_mask, res.c, res.s, res.b, res.g)
+                  merged_mask: torch.Tensor, mesh=None) -> CNMFEState:
+    rows = comm.traces_to_neurons(state.C_raw, mesh)     # whole traces
+    sn = noise_psd(rows)
+    res = deconvolve(rows, params.temporal.deconv, sn=sn)
+    if mesh is None:
+        return _deconv_writeback(state, merged_mask, res.c, res.s, res.b,
+                                 res.g)
+    T = rows.shape[1]
+    bg = comm.all_gather_cat(torch.cat([res.b[:, None], res.g], dim=1), 0,
+                             mesh.patch_group)
+    return _deconv_writeback(state, merged_mask,
+                             comm.traces_to_frames(res.c, T, mesh),
+                             comm.traces_to_frames(res.s, T, mesh),
+                             bg[:, 0].contiguous(),
+                             bg[:, 1:].contiguous())
 
 
 def merge_neurons(state: CNMFEState, params: CNMFEParams,
-                  mode: str = "dist_corr", deconv: bool = True
+                  mode: str = "dist_corr", deconv: bool = True, mesh=None
                   ) -> Tuple[CNMFEState, torch.Tensor]:
     """Cluster candidates and merge each cluster by rank-1 refit. Returns
     (state, n_clusters) with n_clusters a device scalar; ``deconv=False``
     defers re-deconvolution of merged traces to a following temporal
     update."""
-    members, keep, valid, nm = _cluster_device(state, params, _PLANES[mode])
+    members, keep, valid, nm = _cluster_device(state, params, _PLANES[mode],
+                                               mesh)
     state, merged_mask = _merge_apply(state, members, keep, valid,
-                                      refit_iters=params.merge.refit_iters)
+                                      refit_iters=params.merge.refit_iters,
+                                      mesh=mesh)
     if deconv and params.temporal.deconv.enabled:
-        state = _redeconvolve(state, params, merged_mask)
+        state = _redeconvolve(state, params, merged_mask, mesh)
     return state, nm
 
 
 def _merge_with_adjacency(state: CNMFEState, params: CNMFEParams,
                           adj: np.ndarray, rank: np.ndarray,
-                          active: np.ndarray, deconv: bool = True
-                          ) -> Tuple[CNMFEState, int]:
+                          active: np.ndarray, deconv: bool = True,
+                          mesh=None) -> Tuple[CNMFEState, int]:
     if not adj.any():
         return state, 0
     labels, ncomp = connected_components(adj)
@@ -306,9 +342,9 @@ def _merge_with_adjacency(state: CNMFEState, params: CNMFEParams,
     state, merged_mask = _merge_apply(
         state, torch.as_tensor(members, device=dev),
         torch.as_tensor(keep, device=dev), torch.as_tensor(valid, device=dev),
-        refit_iters=params.merge.refit_iters)
+        refit_iters=params.merge.refit_iters, mesh=mesh)
     if deconv and params.temporal.deconv.enabled:
-        state = _redeconvolve(state, params, merged_mask)
+        state = _redeconvolve(state, params, merged_mask, mesh)
     return state, n_merged
 
 
@@ -331,19 +367,23 @@ def merge_pairs(state: CNMFEState, params: CNMFEParams, pairs,
 
 
 def merge_neurons_seq(state: CNMFEState, params: CNMFEParams, modes,
-                      deconv: bool = True) -> Tuple[CNMFEState, int]:
+                      deconv: bool = True, mesh=None
+                      ) -> Tuple[CNMFEState, int]:
     """Several merge modes back to back on one adjacency fetch (refetched
-    only after a mode actually merged). Returns (state, total clusters)."""
+    only after a mode actually merged). Returns (state, total clusters).
+    Under a mesh every rank fetches the same adjacency, so every rank
+    takes the same branches."""
     fetched = None
     total = 0
     for mode in modes:
         if fetched is None:
-            adj3, rank = _merge_adjacency(state, params)
+            adj3, rank = _merge_adjacency(state, params, mesh)
             fetched = (adj3.cpu().numpy(), rank.cpu().numpy(),
                        state.active.cpu().numpy())
         adj3, rank, active = fetched
         state2, nm = _merge_with_adjacency(state, params, adj3[_PLANES[mode]],
-                                           rank, active, deconv=deconv)
+                                           rank, active, deconv=deconv,
+                                           mesh=mesh)
         if nm:
             state, fetched = state2, None
         total += nm

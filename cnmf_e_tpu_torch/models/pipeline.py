@@ -5,6 +5,16 @@ Stage order mirrors the reference demo (``demo_large_data_1p.m:122-232``):
   init -> merge -> background -> residual pick -> spatial -> merge ->
   [temporal -> QC -> merge -> spatial] x n_outer -> merge ->
   background -> spatial -> temporal -> QC -> merges -> [refit] -> tags
+
+``CNMFE(..., mesh=mesh).fit(block)`` runs the same stages on a (patch,
+frame) mesh of ``torch.distributed`` ranks (``parallel/mesh.py``): every
+rank passes its (T/frame, H/patch, W) block of the movie
+(``mesh.shard_movie``), the movie and the footprints stay sharded through
+every stage, each stage sums over the mesh what it needs (the modules'
+docstrings), and every rank returns the same full state, gathered at the
+end. The path is the 1p default's: the ring background, HALS on dilated
+search locations, any deconvolution family; the other options raise
+NotImplementedError under a mesh.
 """
 
 from __future__ import annotations
@@ -16,10 +26,13 @@ import torch
 
 from cnmf_e_tpu_torch.checkpoint import restore_state
 from cnmf_e_tpu_torch.config import CNMFEParams
+from cnmf_e_tpu_torch.convert import gather_state
 from cnmf_e_tpu_torch.models.background import (background_of,
                                                 residual_movie,
                                                 subtract_background,
                                                 update_background)
+from cnmf_e_tpu_torch.models import (background, initialize, spatial,
+                                     temporal)
 from cnmf_e_tpu_torch.models.dff import extract_dff
 from cnmf_e_tpu_torch.models.initialize import initialize_greedy
 from cnmf_e_tpu_torch.models.merge import merge_neurons, merge_neurons_seq
@@ -28,29 +41,70 @@ from cnmf_e_tpu_torch.models.spatial import update_spatial
 from cnmf_e_tpu_torch.models.state import CNMFEState, compact
 from cnmf_e_tpu_torch.models.temporal import update_temporal
 from cnmf_e_tpu_torch.ops.noise import noise_psd_frames
+from cnmf_e_tpu_torch.parallel import comm
+from cnmf_e_tpu_torch.parallel.mesh import check_divisible
 from cnmf_e_tpu_torch.utils.profiling import timed
+
+
+def _check_mesh(params: CNMFEParams, Y: torch.Tensor, mesh) -> None:
+    """The mesh path's guards, before any stage runs: each stage's
+    NotImplementedError for an option off the path, and a ValueError
+    naming a dimension that does not divide (or in which the ranks'
+    blocks differ)."""
+    for check in (background.check_mesh_options,
+                  spatial.check_mesh_options, temporal.check_mesh_options):
+        check(params)
+    initialize.check_mesh_options(params, mesh)
+    shape = torch.tensor(Y.shape, dtype=torch.int64, device=Y.device)
+    hi = comm.all_reduce_max(shape.clone(), None)      # the whole mesh
+    lo = comm.all_reduce_min(shape.clone(), None)
+    for i, name in enumerate(("T", "H", "W")):
+        if int(hi[i]) != int(lo[i]):
+            raise ValueError(f"the ranks' blocks differ in {name}: "
+                             f"{int(lo[i])} to {int(hi[i])}")
+    check_divisible(mesh, K=params.init.max_neurons)
+    ssub = params.background.ssub
+    if ssub > 1 and Y.shape[1] % ssub:
+        raise ValueError(f"H / n_patch = {Y.shape[1]} is not a multiple "
+                         f"of background.ssub = {ssub}")
 
 
 class CNMFE:
     """High-level pipeline object. Every tensor it builds lives on
     ``device``: the card by default, where the CUDA kernels run;
-    ``device="cpu"`` runs their plain PyTorch versions."""
+    ``device="cpu"`` runs their plain PyTorch versions. ``mesh``: a
+    :class:`~cnmf_e_tpu_torch.parallel.mesh.Mesh`; :meth:`fit` then takes
+    this rank's block of the movie (the module docstring), and the
+    device is the mesh's (another ``device`` raises)."""
 
     def __init__(self, params: Optional[CNMFEParams] = None,
-                 device="cuda"):
+                 device=None, mesh=None):
         self.params = params or CNMFEParams.preset_1p()
-        self.device = torch.device(device)
+        if mesh is not None:
+            d = mesh.device if device is None else torch.device(device)
+            if d.type != mesh.device.type or d.index not in (
+                    None, mesh.device.index):
+                raise ValueError(f"device {d} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
+        self.device = torch.device("cuda" if device is None else device)
+        self.mesh = mesh
         self.state: Optional[CNMFEState] = None
         self.info: dict = {}
 
     def _movie(self, Y) -> torch.Tensor:
         return torch.as_tensor(Y, device=self.device).to(torch.float32)
 
+    def _one_process(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(f"CNMFE.{what} takes no mesh")
+
     def estimate_pixel_noise(self, Y: torch.Tensor) -> torch.Tensor:
         """Per-pixel noise sigma over the first ``noise_frame_cap`` frames
-        (``Sources2D.m:328-379``)."""
-        return noise_psd_frames(Y[:min(self.params.noise_frame_cap,
-                                       Y.shape[0])])
+        (``Sources2D.m:328-379``); under a mesh Y is this rank's block and
+        the sigma its rows'."""
+        return noise_psd_frames(Y, mesh=self.mesh,
+                                n_frames=self.params.noise_frame_cap)
 
     def fit(self, Y, n_outer: int = 2, verbose: bool = False,
             run_log=None, resume_from: Optional[str] = None,
@@ -64,12 +118,26 @@ class CNMFE:
         the state restored from it. ``timer``: optional
         :class:`cnmf_e_tpu_torch.utils.profiling.StageTimer`, which sums
         wall time per stage (the JAX package's stage names), each stage
-        closed by a device synchronisation."""
+        closed by a device synchronisation.
+
+        Under a mesh every rank calls ``fit`` with its block of Y and the
+        same arguments, and gets the same full state; ``run_log`` and
+        ``resume_from`` take no mesh."""
         p = self.params
+        mesh = self.mesh
+        if mesh is not None:
+            for name, v in (("run_log", run_log),
+                            ("resume_from", resume_from)):
+                if v is not None:
+                    raise NotImplementedError(f"CNMFE.fit({name}=...) takes "
+                                              f"no mesh")
         with timed(timer, "scrub"):
             Y = self._movie(Y)
+            # rank-local under a mesh: no collective depends on it
             if not bool(torch.isfinite(Y.sum())):
                 Y = torch.nan_to_num(Y)
+        if mesh is not None:
+            _check_mesh(p, Y, mesh)
         t0 = time.time()
 
         def log(msg):
@@ -94,77 +162,90 @@ class CNMFE:
                 f"{resume_from}")
         else:
             with timed(timer, "init"):
-                state, info = initialize_greedy(Y, p, verbose=verbose)
+                state, info = initialize_greedy(Y, p, verbose=verbose,
+                                                mesh=mesh)
             self.info.update(Cn=info["Cn"], PNR=info["PNR"])
             log(lambda: f"init: {int(state.n_active())} neurons")
             with timed(timer, "merge"):
-                state, _ = merge_neurons(state, p, "dist_corr")
+                state, _ = merge_neurons(state, p, "dist_corr", mesh=mesh)
             if run_log is not None:
                 run_log.snapshot("init", state)
             with timed(timer, "background"):
-                state = update_background(Y, state, p, sn_pix=sn_pix)
+                state = update_background(Y, state, p, sn_pix=sn_pix,
+                                          mesh=mesh)
             with timed(timer, "residual_pick"):
                 state = compact(state)
                 state, _ = initialize_greedy(
-                    residual_movie(Y, state, p), p, state=state,
+                    residual_movie(Y, state, p, mesh), p, state=state,
                     min_corr=p.init.min_corr_res,
-                    min_pnr=p.init.min_pnr_res, verbose=verbose)
+                    min_pnr=p.init.min_pnr_res, verbose=verbose, mesh=mesh)
             log(lambda: f"residual pick: {int(state.n_active())} neurons")
 
         # spatial first so residual duplicates refit onto the data; the
         # temporal update that follows re-deconvolves merged traces
         with timed(timer, "spatial"):
-            Ysig = subtract_background(Y, state, p)
-            state = update_spatial(Ysig, state, p, sn_pix=sn_pix)
+            Ysig = subtract_background(Y, state, p, mesh)
+            state = update_spatial(Ysig, state, p, sn_pix=sn_pix, mesh=mesh)
         with timed(timer, "merge"):
-            state, _ = merge_neurons(state, p, "high_corr", deconv=False)
+            state, _ = merge_neurons(state, p, "high_corr", deconv=False,
+                                     mesh=mesh)
 
         for it in range(max(n_outer, 1)):
             re_bg = p.background.refresh_every
             if re_bg > 0 and it > 0 and it % re_bg == 0:
                 with timed(timer, "background"):
-                    state = update_background(Y, state, p, sn_pix=sn_pix)
-                    Ysig = subtract_background(Y, state, p)
+                    state = update_background(Y, state, p, sn_pix=sn_pix,
+                                              mesh=mesh)
+                    Ysig = subtract_background(Y, state, p, mesh)
             with timed(timer, "temporal"):
-                state = update_temporal(Ysig, state, p)
+                state = update_temporal(Ysig, state, p, mesh)
             with timed(timer, "qc"):
-                state = remove_false_positives(state, p)
+                state = remove_false_positives(state, p, mesh=mesh)
             with timed(timer, "merge"):
-                state, _ = merge_neurons(state, p, "dist_corr", deconv=False)
+                state, _ = merge_neurons(state, p, "dist_corr", deconv=False,
+                                         mesh=mesh)
             with timed(timer, "spatial"):
-                state = update_spatial(Ysig, state, p, sn_pix=sn_pix)
+                state = update_spatial(Ysig, state, p, sn_pix=sn_pix,
+                                       mesh=mesh)
             log(lambda it=it: f"iter {it}: {int(state.n_active())} neurons")
 
         # fold co-located duplicates into their originals
         with timed(timer, "merge"):
-            state, _ = merge_neurons(state, p, "dist_only", deconv=False)
+            state, _ = merge_neurons(state, p, "dist_only", deconv=False,
+                                     mesh=mesh)
 
         # final full pass on a refreshed background
         with timed(timer, "background"):
-            state = update_background(Y, state, p, sn_pix=sn_pix)
+            state = update_background(Y, state, p, sn_pix=sn_pix, mesh=mesh)
         with timed(timer, "spatial"):
-            Ysig = subtract_background(Y, state, p)
-            state = update_spatial(Ysig, state, p, sn_pix=sn_pix)
+            Ysig = subtract_background(Y, state, p, mesh)
+            state = update_spatial(Ysig, state, p, sn_pix=sn_pix, mesh=mesh)
         with timed(timer, "temporal"):
-            state = update_temporal(Ysig, state, p)
+            state = update_temporal(Ysig, state, p, mesh)
+        # the active mask is the same on every rank of a mesh, so every
+        # rank takes the refit branch below alike
         k_before = int(state.n_active())
         with timed(timer, "qc"):
-            state = remove_false_positives(state, p)
+            state = remove_false_positives(state, p, mesh=mesh)
         # if a merge fires the count drops below k_before and the refit
         # below re-deconvolves
         with timed(timer, "merge"):
             state, _ = merge_neurons_seq(state, p,
                                          ("dist_corr", "high_corr"),
-                                         deconv=False)
+                                         deconv=False, mesh=mesh)
         if int(state.n_active()) != k_before:
             with timed(timer, "spatial"):
-                Ysig = subtract_background(Y, state, p)
-                state = update_spatial(Ysig, state, p, sn_pix=sn_pix)
+                Ysig = subtract_background(Y, state, p, mesh)
+                state = update_spatial(Ysig, state, p, sn_pix=sn_pix,
+                                       mesh=mesh)
             with timed(timer, "temporal"):
-                state = update_temporal(Ysig, state, p)
+                state = update_temporal(Ysig, state, p, mesh)
             with timed(timer, "qc"):
-                state = remove_false_positives(state, p)
-        state = compact(tag_neurons(state, p))
+                state = remove_false_positives(state, p, mesh=mesh)
+        state = compact(tag_neurons(state, p, mesh))
+        if mesh is not None:
+            with timed(timer, "gather"):
+                state = gather_state(state, mesh)
         log(lambda: f"done: {int(state.n_active())} neurons")
         if run_log is not None:
             run_log.snapshot("final", state)
@@ -174,18 +255,21 @@ class CNMFE:
     def dff(self, Y, window: Optional[int] = None, prctile: float = 50.0):
         """(C_df, C_raw_df, F0) of the fitted state on the movie Y
         (:func:`cnmf_e_tpu_torch.models.dff.extract_dff`)."""
+        self._one_process("dff")
         if self.state is None:
             raise RuntimeError("run fit() first")
         return extract_dff(self._movie(Y), self.state, self.params,
                            window=window, prctile=prctile)
 
     def background(self, Y) -> torch.Tensor:
+        self._one_process("background")
         if self.state is None:
             raise RuntimeError("run fit() first")
         return background_of(self._movie(Y), self.state, self.params)
 
     def reconstruction(self, Y) -> torch.Tensor:
         """Denoised movie A C + B."""
+        self._one_process("reconstruction")
         st = self.state
         B = self.background(Y)
         A = st.masked_A()
@@ -193,9 +277,11 @@ class CNMFE:
         return AC.reshape(B.shape) + B
 
     def residual(self, Y) -> torch.Tensor:
+        self._one_process("residual")
         return self._movie(Y) - self.reconstruction(Y)
 
     def compute_rss(self, Y) -> float:
         """||Y - AC - B||_F^2 (``Sources2D.m:1358-1510``)."""
+        self._one_process("compute_rss")
         r = self.residual(Y)
         return float((r * r).sum())

@@ -1,7 +1,12 @@
 """Quality control: per-neuron defect tags, false-positive removal and
 neuron ordering (port of ``cnmf_e_tpu/models/qc.py``; reference
 ``Sources2D.m:1683-1715`` tags, ``:744-759`` ``remove_false_positives``,
-``:573-653`` ``orderROIs``)."""
+``:573-653`` ``orderROIs``).
+
+``mesh``: :func:`tag_neurons` and :func:`remove_false_positives` on
+this rank's blocks: pixel counts summed over 'patch', the trace
+statistics on whole traces (K / n_patch a patch rank, the tags gathered
+over 'patch'), so every rank holds the same tags and active mask."""
 
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ from cnmf_e_tpu_torch.models.merge import decay_times
 from cnmf_e_tpu_torch.models.pairing import classify_components
 from cnmf_e_tpu_torch.models.state import CNMFEState
 from cnmf_e_tpu_torch.ops.noise import noise_psd
+from cnmf_e_tpu_torch.parallel import comm
 
 TAG_FEW_PIXELS = 1
 TAG_NO_SPIKES = 2
@@ -20,25 +26,31 @@ TAG_ZERO_RESIDUAL = 4
 TAG_LOW_PNR = 8
 
 
-def tag_neurons(state: CNMFEState, params: CNMFEParams) -> CNMFEState:
+def tag_neurons(state: CNMFEState, params: CNMFEParams,
+                mesh=None) -> CNMFEState:
     qc = params.qc
     i32 = torch.int32
-    npix = (state.A > 0).sum(dim=(1, 2))
+    npix = comm.psum((state.A > 0).sum(dim=(1, 2)), mesh, "patch")
     tags = (npix < qc.min_pixel).to(i32) * TAG_FEW_PIXELS
     if params.temporal.deconv.enabled:
-        n_spikes = (state.S[:, 1:] > 0).sum(dim=-1)
-        tags = tags + (n_spikes < qc.min_spike_count).to(i32) * TAG_NO_SPIKES
-        resid_std = (state.C_raw - state.C).std(dim=-1, unbiased=False)
-        raw_sn = noise_psd(state.C_raw)
-        tags = tags + (resid_std / torch.clamp(raw_sn, min=1e-12) < 0.1
-                       ).to(i32) * TAG_ZERO_RESIDUAL
-        pnr = state.C.amax(dim=-1) / torch.clamp(resid_std, min=1e-12)
-        tags = tags + (pnr < qc.min_pnr).to(i32) * TAG_LOW_PNR
+        S, C_raw, C = (comm.traces_to_neurons(x, mesh)
+                       for x in (state.S, state.C_raw, state.C))
+        n_spikes = (S[:, 1:] > 0).sum(dim=-1)
+        t = (n_spikes < qc.min_spike_count).to(i32) * TAG_NO_SPIKES
+        resid_std = (C_raw - C).std(dim=-1, unbiased=False)
+        raw_sn = noise_psd(C_raw)
+        t = t + (resid_std / torch.clamp(raw_sn, min=1e-12) < 0.1
+                 ).to(i32) * TAG_ZERO_RESIDUAL
+        pnr = C.amax(dim=-1) / torch.clamp(resid_std, min=1e-12)
+        t = t + (pnr < qc.min_pnr).to(i32) * TAG_LOW_PNR
+        if mesh is not None:
+            t = comm.all_gather_cat(t, 0, mesh.patch_group)
+        tags = tags + t
     return state.replace(tags=torch.where(state.active, tags, 0))
 
 
 def remove_false_positives(state: CNMFEState, params: CNMFEParams,
-                           active_pixels=None) -> CNMFEState:
+                           active_pixels=None, mesh=None) -> CNMFEState:
     """Deactivate neurons carrying any defect tag.
 
     ``active_pixels``: optional (H, W) bool mask of signal-bearing pixels;
@@ -46,7 +58,10 @@ def remove_false_positives(state: CNMFEState, params: CNMFEParams,
     ``cl_thr`` of their l2 norm on the mask go too, the
     ``classify_components`` criterion (``classify_components.m:31-38``),
     decided on the host in float64."""
-    state = tag_neurons(state, params)
+    if mesh is not None and active_pixels is not None:
+        raise NotImplementedError("remove_false_positives(active_pixels=) "
+                                  "takes no mesh")
+    state = tag_neurons(state, params, mesh)
     keep = state.active & (state.tags == 0)
     if active_pixels is not None and params.qc.classify_cl_thr > 0:
         K = state.K_max

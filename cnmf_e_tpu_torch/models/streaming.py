@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 from cnmf_e_tpu_torch.config import CNMFEParams
-from cnmf_e_tpu_torch.convert import state_from_numpy, state_to_numpy
+from cnmf_e_tpu_torch.convert import (gather_state, state_blocks,
+                                      state_from_numpy, state_to_numpy)
 from cnmf_e_tpu_torch.io.store import MovieStore
 from cnmf_e_tpu_torch.models.initialize import initialize_greedy
 from cnmf_e_tpu_torch.models.merge import merge_neurons
@@ -52,13 +53,12 @@ from cnmf_e_tpu_torch.ops.hals import (hals_spatial_sweeps_rows,
                                        hals_temporal_sweeps)
 from cnmf_e_tpu_torch.ops.noise import noise_psd_frames
 from cnmf_e_tpu_torch.ops.oasis import deconvolve
-from cnmf_e_tpu_torch.ops.ring import apply_ring, fit_ring_weights
+from cnmf_e_tpu_torch.ops.ring import (apply_ring, fit_ring_weights_mesh,
+                                       stride_grid)
 from cnmf_e_tpu_torch.ops.ring_kernels import ring_offsets
 from cnmf_e_tpu_torch.ops.stats import submedian_mean
 from cnmf_e_tpu_torch.parallel import comm
-from cnmf_e_tpu_torch.parallel.mesh import (check_divisible,
-                                            gather_footprints, gather_image,
-                                            gather_traces)
+from cnmf_e_tpu_torch.parallel.mesh import check_divisible, gather_image
 from cnmf_e_tpu_torch.utils.profiling import timed
 
 # Chunked branches. Each is exact by construction (columns, pixels and
@@ -308,35 +308,11 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
     def tensor(x, dtype=torch.float32):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
-    def frame_mean(x, n):
-        """The mean over all n frames of (K, this rank's frames) ``x``."""
-        if mesh is None:
-            return x.mean(dim=-1)
-        return comm.psum(x.sum(dim=-1), mesh, "frame") / n
-
     def blocks_of(st: CNMFEState) -> CNMFEState:
-        """This rank's blocks of a full state (the state itself without a
-        mesh); T = 1 trace placeholders stay whole."""
-        if mesh is None:
-            return st
-        kw = {k: getattr(st, k)[:, f0:f1].contiguous()
-              for k in ("C", "C_raw", "S") if getattr(st, k).shape[1] == T}
-        if st.W is not None:
-            kw["W"] = _pixel_rows(st.W, h0 * W, h1 * W)
-        return st.replace(A=st.A[:, h0:h1].contiguous(),
-                          b0=st.b0[h0:h1].contiguous(), **kw)
+        return st if mesh is None else state_blocks(st, mesh)
 
     def gathered(st: CNMFEState) -> CNMFEState:
-        """The full state from every rank's blocks (a collective)."""
-        if mesh is None:
-            return st
-        kw = {k: gather_traces(getattr(st, k), mesh)
-              for k in ("C", "C_raw", "S")}
-        if st.W is not None:
-            kw["W"] = RingWeights(w=gather_image(st.W.w, mesh),
-                                  w0=gather_image(st.W.w0, mesh))
-        return st.replace(A=gather_footprints(st.A, mesh),
-                          b0=gather_image(st.b0, mesh), **kw)
+        return st if mesh is None else gather_state(st, mesh)
 
     def on_lead(fn, st: CNMFEState, whole: bool = False):
         """``fn(full state) -> (full state, extra)`` on rank 0 only; every
@@ -438,37 +414,22 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
 
     fpb = store.frames_per_block
     sub_blocks = max(1, -(-fpb * dl * 4 // CHUNK_BYTES))
-    offsets = ring_offsets(radius)
-    R = offsets.shape[0]
-    reach = int(np.abs(offsets[:, 0]).max())
+    R = ring_offsets(radius).shape[0]
     stride = max(int(np.ceil(T / (params.background.frame_cap_factor * R))),
                  1)
 
-    def n_grid_in(a, b):
-        """The stride-grid frames (0, stride, ...) in [a, b)."""
-        return len(range(-(-a // stride) * stride, b, stride))
-    n_grid = n_grid_in(0, T)
+    n_grid = len(range(0, T, stride))
     g_lo = -(-f0 // stride)          # this rank's first grid column
     Tl = f1 - f0
-    grid_sizes = (None if mesh is None else
-                  [n_grid_in(g * Tl, (g + 1) * Tl)
-                   for g in range(mesh.n_frame)])
+    _, grid_sizes = stride_grid(T, stride, mesh)
 
     def fit_ring(Bf):
         """The ring weights of this rank's pixels from its strided
         residual rows Bf (its frames and rows): under a mesh the rows take
         the ring's halo from the patch neighbours and the frames of the
         other frame ranks."""
-        if mesh is None:
-            return fit_ring_weights(Bf, H, W, radius,
-                                    ridge_eps=params.background.ridge_eps)
-        Bp = comm.all_gather_cat(comm.halo_rows(Bf, reach, mesh), 0,
-                                 mesh.frame_group, grid_sizes)
-        return fit_ring_weights(
-            Bp, Hl + 2 * reach, W, radius,
-            ridge_eps=params.background.ridge_eps, rows=(reach, reach + Hl),
-            fov_rows=(max(reach - h0, 0), min(reach + H - h0,
-                                              Hl + 2 * reach)))
+        return fit_ring_weights_mesh(Bf, H, W, radius, mesh, grid_sizes,
+                                     ridge_eps=params.background.ridge_eps)
 
     weights = None
     Ymean = None
@@ -524,7 +485,7 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
                                           n_iter=params.temporal.n_iter,
                                           active=state.active)
                 del Ug, C0g
-                Cg_mean = frame_mean(Cg, n_grid)
+                Cg_mean = comm.frame_mean(Cg, -1, mesh, n=n_grid)
                 state = state.replace(
                     b0=Ymean - (Cg_mean @ A_kd).reshape(Hl, W))
                 Ccg = (Cg - Cg_mean[:, None]).contiguous()
@@ -621,7 +582,7 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
         if not skip_ring_spatial:
             # ---- ring background fit on strided residual rows ----------
             with timed(timer, "ring_fit"):
-                Cmean = frame_mean(state.C, T)
+                Cmean = comm.frame_mean(state.C, -1, mesh)
                 state = state.replace(
                     b0=Ymean - (Cmean @ A_kd).reshape(Hl, W))
                 Cc_s = (state.C - Cmean[:, None])[

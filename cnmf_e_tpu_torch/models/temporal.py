@@ -1,7 +1,13 @@
 """Temporal (C) update with batched deconvolution (port of
 ``cnmf_e_tpu/models/temporal.py``; reference
 ``update_temporal_parallel.m``, ``HALS_temporal.m:58-107`` and, with
-``decorrelate``, ``decorrTemporal.m``)."""
+``decorrelate``, ``decorrTemporal.m``).
+
+``mesh``: HALS on this rank's frames with A^T A and A^T Y summed over
+'patch' (``ops/hals.py``); the baseline, the noise and the deconvolution
+run on whole traces, K / n_patch of them a patch rank
+(``comm.traces_to_neurons``), as in the step's mesh branch. Every
+deconvolution family runs so; ``decorrelate`` takes no mesh."""
 
 from __future__ import annotations
 
@@ -14,19 +20,33 @@ from cnmf_e_tpu_torch.ops.noise import noise_psd
 from cnmf_e_tpu_torch.ops.oasis import deconvolve
 from cnmf_e_tpu_torch.ops.spikes import decorr_temporal
 from cnmf_e_tpu_torch.ops.stats import submedian_mean
+from cnmf_e_tpu_torch.parallel import comm
+
+
+def check_mesh_options(params: CNMFEParams) -> None:
+    """Raise NotImplementedError naming the temporal option that takes no
+    mesh."""
+    if params.temporal.decorrelate:
+        raise NotImplementedError("temporal.decorrelate takes no mesh")
 
 
 def update_temporal(Ysignal: torch.Tensor, state: CNMFEState,
-                    params: CNMFEParams) -> CNMFEState:
+                    params: CNMFEParams, mesh=None) -> CNMFEState:
     """Update traces given footprints. Ysignal: (T, H, W) = Y - B."""
     tp = params.temporal
+    if mesh is not None:
+        check_mesh_options(params)
     T, H, W = Ysignal.shape
     K = state.K_max
     A = state.masked_A()
     Yd = Ysignal.reshape(T, H * W).T
     Ad = A.reshape(K, H * W).T
     C_raw, _ = hals_temporal(Yd, Ad, state.masked_C(), n_iter=tp.n_iter,
-                             active=state.active)
+                             active=state.active, mesh=mesh)
+    # whole traces from here on: this patch rank's rows under a mesh
+    C_raw = comm.traces_to_neurons(C_raw, mesh)
+    k0, k1 = (0, K) if mesh is None else mesh.neurons(K)
+    active, g_old = state.active[k0:k1], state.g[k0:k1]
     # per-trace baseline: mean of sub-median samples (HALS_temporal.m:79)
     C_raw = C_raw - submedian_mean(C_raw, dim=-1)[:, None]
     sn = noise_psd(C_raw)
@@ -42,14 +62,20 @@ def update_temporal(Ysignal: torch.Tensor, state: CNMFEState,
         C_raw_new = C_raw
         C_new = C_raw - C_raw.amin(dim=-1, keepdim=True)
         S_new = torch.zeros_like(C_raw)
-        g_new = state.g
+        g_new = g_old
     if tp.decorrelate and tp.deconv.enabled:
         C_new = decorr_temporal(C_new, S_new, A, g_new, sn,
                                 gSiz=float(params.init.gSiz))
-    act = state.active[:, None]
+    act = active[:, None]
+    T_all = C_raw.shape[1]
+
+    def frames(x):
+        return comm.traces_to_frames(torch.where(act, x, 0.0), T_all, mesh)
+
+    def neurons(x):
+        return x if mesh is None else comm.all_gather_cat(
+            x, 0, mesh.patch_group)
     return state.replace(
-        C=torch.where(act, C_new, 0.0),
-        C_raw=torch.where(act, C_raw_new, 0.0),
-        S=torch.where(act, S_new, 0.0),
-        g=torch.where(act, g_new, state.g),
-        neuron_sn=torch.where(state.active, sn, 0.0))
+        C=frames(C_new), C_raw=frames(C_raw_new), S=frames(S_new),
+        g=neurons(torch.where(act, g_new, g_old)),
+        neuron_sn=neurons(torch.where(active, sn, 0.0)))

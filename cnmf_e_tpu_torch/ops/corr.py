@@ -20,33 +20,47 @@ from cnmf_e_tpu_torch.ops.filters import (filter_movie, gaussian_psf,
                                           neighbor_kernel)
 from cnmf_e_tpu_torch.ops.noise import noise_psd_frames
 from cnmf_e_tpu_torch.ops.stats import fast_median
+from cnmf_e_tpu_torch.parallel import comm
 
 
 def correlation_image(Y: torch.Tensor, kernel: Optional[np.ndarray] = None,
-                      center: bool = True) -> torch.Tensor:
-    """Mean correlation of each pixel with its neighbors. Y: (T, H, W)."""
+                      center: bool = True, mesh=None) -> torch.Tensor:
+    """Mean correlation of each pixel with its neighbors. Y: (T, H, W).
+
+    ``mesh``: Y is this rank's block (T/frame, H/patch, W); the means
+    over time are summed over 'frame', the neighbour taps read ``kh // 2``
+    halo rows of the normalised movie from the patch neighbours (zeros
+    past the field of view, as the one-process padding), and the result
+    is this rank's rows."""
     if kernel is None:
         kernel = neighbor_kernel(1.0, 2.0)
     if center:
-        Y = Y - Y.mean(dim=0, keepdim=True)
-    denom = torch.sqrt((Y * Y).mean(dim=0, keepdim=True))
+        Y = Y - comm.frame_mean(Y, 0, mesh, keepdim=True)
+    denom = torch.sqrt(comm.frame_mean(Y * Y, 0, mesh, keepdim=True))
     X = Y / torch.clamp(denom, min=1e-12)
     kh, kw = kernel.shape
     ph, pw = kh // 2, kw // 2
     T, H, W = X.shape
-    Xp = F.pad(X, (pw, kw - 1 - pw, ph, kh - 1 - ph))
+    h0, Hf = (0, H) if mesh is None else (mesh.p * H, mesh.n_patch * H)
+    if mesh is None or mesh.n_patch == 1:
+        Xp = F.pad(X, (pw, kw - 1 - pw, ph, kh - 1 - ph))
+    else:
+        r = max(ph, kh - 1 - ph)
+        Xp = comm.halo_rows(X, r, mesh)[:, r - ph:r + H + kh - 1 - ph]
+        Xp = F.pad(Xp, (pw, kw - 1 - pw, 0, 0))
     Xs = torch.zeros_like(X)
     taps = np.argwhere(kernel != 0)
     for dy, dx in taps:
         Xs = Xs + float(kernel[dy, dx]) * Xp[:, dy:dy + H, dx:dx + W]
-    # in-FOV neighbor count per pixel
-    ones = np.zeros((H + kh - 1, W + kw - 1), np.float32)
-    ones[ph:ph + H, pw:pw + W] = 1.0
-    count = np.zeros((H, W), np.float32)
+    # in-FOV neighbor count per pixel (this rank's rows of the FOV's)
+    ones = np.zeros((Hf + kh - 1, W + kw - 1), np.float32)
+    ones[ph:ph + Hf, pw:pw + W] = 1.0
+    count = np.zeros((Hf, W), np.float32)
     for dy, dx in taps:
-        count += kernel[dy, dx] * ones[dy:dy + H, dx:dx + W]
-    count = torch.as_tensor(np.maximum(count, 1.0), device=Y.device)
-    return (Xs * X).mean(dim=0) / count
+        count += kernel[dy, dx] * ones[dy:dy + Hf, dx:dx + W]
+    count = torch.as_tensor(np.maximum(count[h0:h0 + H], 1.0),
+                            device=Y.device)
+    return comm.frame_mean(Xs * X, 0, mesh) / count
 
 
 def correlation_pnr(Y: torch.Tensor, gSig: float = 3.0,

@@ -4,6 +4,12 @@ without the TPU's banded-matmul filter).
 Movies are (T, H, W). ``filter_movie`` is the JAX package's conv form: an
 edge-padded correlation with the flipped PSF, i.e. a true convolution with
 the PSF (``greedyROI_endoscope.m:104-127``).
+
+``mesh``: the movie is this rank's slab of rows (T/frame, H/patch, W).
+The filter and the resize read rows past the slab's edges; the slab takes
+them from its patch neighbours, with the field of view's edge rows
+copied past its border (``comm.halo_rows(edge="replicate")``), as the
+one-process padding and the resize's clamp read them.
 """
 
 from __future__ import annotations
@@ -11,6 +17,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from cnmf_e_tpu_torch.parallel import comm
+
+
+def _sharded(mesh) -> bool:
+    return mesh is not None and mesh.n_patch > 1
 
 
 def gaussian_psf(gSig: float, center_psf: bool = True,
@@ -33,14 +45,21 @@ def gaussian_psf(gSig: float, center_psf: bool = True,
     return psf.astype(np.float32)
 
 
-def filter_movie(Y: torch.Tensor, psf: np.ndarray) -> torch.Tensor:
+def filter_movie(Y: torch.Tensor, psf: np.ndarray,
+                 mesh=None) -> torch.Tensor:
     """2-D filter each frame of ``Y`` (T, H, W) with replicate padding."""
     if psf.shape == (1, 1):
         return Y * float(psf[0, 0])
     kh, kw = psf.shape
     ph, pw = kh // 2, kw // 2
-    Yp = F.pad(Y[:, None], (pw, kw - 1 - pw, ph, kh - 1 - ph),
-               mode="replicate")
+    if _sharded(mesh):
+        r = max(ph, kh - 1 - ph)
+        Yh = comm.halo_rows(Y, r, mesh, edge="replicate")
+        Yh = Yh[:, r - ph:r + Y.shape[1] + kh - 1 - ph]
+        Yp = F.pad(Yh[:, None], (pw, kw - 1 - pw, 0, 0), mode="replicate")
+    else:
+        Yp = F.pad(Y[:, None], (pw, kw - 1 - pw, ph, kh - 1 - ph),
+                   mode="replicate")
     weight = torch.as_tensor(psf[::-1, ::-1].copy(),
                              device=Y.device)[None, None]
     return F.conv2d(Yp, weight)[:, 0]
@@ -59,7 +78,9 @@ def box_downsample(Y: torch.Tensor, ssub: int = 1,
                    tsub: int = 1) -> torch.Tensor:
     """Spatio-temporal box down-sampling of a (T, H, W) movie
     (``dsData.m:33-43``): a ragged spatial edge is edge-padded into the
-    last bin; trailing frames short of a full ``tsub`` bin are dropped."""
+    last bin; trailing frames short of a full ``tsub`` bin are dropped.
+    A mesh rank's slab pools alone when its rows are a multiple of
+    ``ssub`` (``CNMFE(mesh=...)`` requires it): no bin crosses slabs."""
     T, H, W = Y.shape
     if ssub > 1:
         Hs, Ws = -(-H // ssub), -(-W // ssub)
@@ -72,11 +93,23 @@ def box_downsample(Y: torch.Tensor, ssub: int = 1,
     return Y
 
 
-def resize_linear(X: torch.Tensor, out_hw) -> torch.Tensor:
+def resize_linear(X: torch.Tensor, out_hw, mesh=None) -> torch.Tensor:
     """Bilinear resize of the last two axes with half-pixel centres — the
     ``jax.image.resize(..., method="linear")`` upsample (edge samples take
-    the border value)."""
+    the border value).
+
+    ``mesh``: X is this rank's slab of coarse rows and ``out_hw`` the
+    slab's output size, an integer multiple of X's rows: the slab takes
+    one coarse row from each neighbour (the edge row itself past the
+    field of view, which is the resize's clamp), is resized at the same
+    scale, and the output rows of the halo are dropped."""
     lead = X.shape[:-2]
+    if _sharded(mesh):
+        hs = X.shape[-2]
+        up = out_hw[0] // hs
+        Xh = comm.halo_rows(X, 1, mesh, edge="replicate")
+        out = resize_linear(Xh, ((hs + 2) * up, out_hw[1]))
+        return out[..., up:up + out_hw[0], :].contiguous()
     Xf = X.reshape((-1, 1) + tuple(X.shape[-2:]))
     out = F.interpolate(Xf, size=tuple(out_hw), mode="bilinear",
                         align_corners=False)

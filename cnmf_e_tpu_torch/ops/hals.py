@@ -7,6 +7,13 @@ The Grams U and V are plain matmuls; the sweeps run in the HALS kernel
 colour-class schedule or, for the uncoloured step of
 ``parallel/step.py``, on the in-order block grid. ``hals_spatial`` and
 ``hals_temporal`` keep the JAX package's (d, K) layout.
+
+``mesh``: Y holds this rank's pixels and frames, A its pixels and C its
+frames. The spatial update sums C's mean, C C^T and C Y^T over 'frame'
+and runs K1 on the rank's pixels; the temporal update sums A^T A and
+A^T Y over 'patch' and runs K1 on the rank's frames; the colourings run
+on graphs summed over 'patch', the same on every rank
+(``parallel/step.py``'s mesh branch does the same).
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from cnmf_e_tpu_torch.ops.coloring import (class_step_schedule,
                                            greedy_color, overlap_adjacency)
 from cnmf_e_tpu_torch.ops.hals_kernels import (block_grid_schedule,
                                                hals_sweeps)
+from cnmf_e_tpu_torch.parallel import comm
 
 
 _BLOCK = 64                 # rows per sweep step of one colour class
@@ -70,7 +78,7 @@ def _colored(coupling_adj: torch.Tensor):
 
 def hals_spatial(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
                  mask: Optional[torch.Tensor] = None, n_iter: int = 5,
-                 colored: bool = True) -> torch.Tensor:
+                 colored: bool = True, mesh=None) -> torch.Tensor:
     """Update A given C: A <- max(0, A + (U - A V) / diag(V)) per neuron,
     with means removed from Y and C (``HALS_spatial.m:28-32``).
 
@@ -80,18 +88,18 @@ def hals_spatial(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
     non-overlapping neurons share a sweep step (``update_order.m:1-21``);
     otherwise they update in order, 16 rows a step, as in the JAX
     package's default."""
-    T = Y.shape[-1]
-    Ymean = Y.mean(dim=1, keepdim=True)
-    Cmean = C.mean(dim=1, keepdim=True)
+    T = Y.shape[-1] * (1 if mesh is None else mesh.n_frame)
+    Ymean = comm.frame_mean(Y, 1, mesh, keepdim=True)
+    Cmean = comm.frame_mean(C, 1, mesh, keepdim=True)
     # row-major (K, d) operands straight from the products, so the kernel
     # reads them without a transposing copy
-    U = C @ Y.T - T * (Cmean @ Ymean.T)                     # (K, d)
-    V = C @ C.T - T * (Cmean @ Cmean.T)                     # (K, K)
+    U = comm.psum(C @ Y.T, mesh, "frame") - T * (Cmean @ Ymean.T)  # (K, d)
+    V = comm.psum(C @ C.T, mesh, "frame") - T * (Cmean @ Cmean.T)  # (K, K)
     if not (colored and mask is not None):
         return hals_spatial_sweeps_rows(
             U, V, A.T, mask=None if mask is None else mask.T,
             n_iter=n_iter).T
-    order, inverse, sched = _colored(overlap_adjacency(mask.T))
+    order, inverse, sched = _colored(overlap_adjacency(mask.T, mesh))
     out = hals_spatial_sweeps_rows(U[order], V[order][:, order],
                                    A.T[order], mask=mask.T[order],
                                    n_iter=n_iter, block=_BLOCK,
@@ -101,7 +109,7 @@ def hals_spatial(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
 
 def hals_temporal(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
                   n_iter: int = 5, active: Optional[torch.Tensor] = None,
-                  colored: bool = True
+                  colored: bool = True, mesh=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Update C given A: c_k <- c_k + (U_k - V_k C) / aa_k (no
     deconvolution). Y: (d, T); A: (d, K); C: (K, T). Returns
@@ -111,8 +119,8 @@ def hals_temporal(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
     footprint overlap graph (disjoint footprints give exact-zero V
     entries); otherwise they update in order, 16 rows a step, as in the
     JAX package's default."""
-    U = A.T @ Y                                             # (K, T)
-    V = A.T @ A                                             # (K, K)
+    U = comm.psum(A.T @ Y, mesh, "patch")                   # (K, T)
+    V = comm.psum(A.T @ A, mesh, "patch")                   # (K, K)
     if not colored:
         return (hals_temporal_sweeps(U, V, C, n_iter=n_iter, active=active),
                 torch.diagonal(V))

@@ -88,6 +88,27 @@ def _peak_rc(img: torch.Tensor):
     return flat_arg // W, flat_arg % W
 
 
+def on_gathered(fn, img: torch.Tensor, mesh) -> torch.Tensor:
+    """``fn`` of whole footprints, such as the shape priors
+    :func:`connectivity_constraint` and :func:`circular_constraint`:
+    under a mesh ``img`` (..., H/patch, W) is this rank's rows, gathered
+    over 'patch', ``fn`` runs on the whole field of view, the same on
+    every rank (its ops are deterministic), and the rank keeps its rows
+    of the result; ``fn(img)`` without a mesh.
+
+    The flood fills of the shape priors cross slabs, and at K = 192
+    footprints of 256x256 the gather hands each of 2 patch ranks 25.2 MB
+    once a call. A ghost-zone fill would exchange 2 x ``_CHECK_EVERY``
+    rows of every footprint per block of steps: 6.3 MB a block, so 12.6
+    MB for a blob that settles in two blocks and up to 201 MB for the
+    H + W steps, besides the opening's and the peak's exchanges."""
+    if mesh is None:
+        return fn(img)
+    Hl = img.shape[-2]
+    full = comm.all_gather_cat(img, img.dim() - 2, mesh.patch_group)
+    return fn(full)[..., mesh.p * Hl:(mesh.p + 1) * Hl, :].contiguous()
+
+
 def connectivity_constraint(img: torch.Tensor, thr: float = 0.01,
                             se_size: int = 5) -> torch.Tensor:
     """Keep only the peak-connected blob of each footprint (..., H, W):

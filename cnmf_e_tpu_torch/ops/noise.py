@@ -5,12 +5,13 @@ frames-first matmul form, and the histogram baseline/noise fit
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from cnmf_e_tpu_torch.ops.stats import median_mid
+from cnmf_e_tpu_torch.parallel import comm
 
 
 def _hamming(n: int) -> np.ndarray:
@@ -67,12 +68,62 @@ def noise_psd(y: torch.Tensor, freq_range=(0.25, 0.5),
 
 
 def noise_psd_frames(Y: torch.Tensor, freq_range=(0.25, 0.5),
-                     method: str = "logmexp") -> torch.Tensor:
+                     method: str = "logmexp", mesh=None,
+                     n_frames: Optional[int] = None) -> torch.Tensor:
     """Per-pixel PSD noise over axis 0 of a frames-first array (T, ...):
     the estimate of ``noise_psd`` on the pixel traces, computed as a
     band-restricted DFT matmul per Welch window (no transpose of the
-    movie, only the band's bins)."""
-    T = Y.shape[0]
+    movie, only the band's bins).
+
+    ``mesh``: Y is this rank's block of frames (T / n_frame of them, in
+    'frame' order) and ``n_frames`` the length of the movie's prefix
+    whose noise is taken (default all frames). A Welch window inside one
+    rank's block is transformed there; a window across a block seam is
+    transformed in parts, each rank its own frames, and the parts are
+    summed over 'frame' before they are squared (the DFT is linear in
+    the frames). The owner of a window's first frame adds its power, and
+    the band powers are summed over 'frame'. At 256x256 pixels on 2 x 2
+    ranks a rank hands the collectives, per seam window, 2 Nb d_local
+    floats (Nb = 65 band bins at 1024 frames, 129 at 2000; d_local =
+    32768), then Nb d_local for the sum: 25.6 MB for the 1024-frame pixel
+    noise (one seam window), 84.5 MB for the init's 2000 frames (two);
+    resharding pixels to whole time series instead would move half of a
+    rank's block, 65.5 MB at 1000 frames."""
+    if mesh is None or mesh.n_frame == 1:
+        mesh, f, n_frame = None, 0, 1         # one block: no collective
+    else:
+        f, n_frame = mesh.f, mesh.n_frame
+    Tl = Y.shape[0]
+    T = Tl * n_frame if n_frames is None else min(n_frames, Tl * n_frame)
+    t0 = f * Tl
+    t1 = min(t0 + Tl, T)
+    F, multj, Nb, seg, step, n_windows = _band_dft(T, freq_range, Y.device)
+    Yf = Y.reshape(Tl, -1)
+    psd = torch.zeros((Nb, Yf.shape[1]), dtype=torch.float32,
+                      device=Y.device)
+    for w in range(n_windows):
+        a, b = w * step, w * step + seg
+        owner = a // Tl
+        lo, hi = max(a, t0), min(b, t1)
+        if owner == (b - 1) // Tl:                # inside one block
+            if owner != f:
+                continue
+            Gw = F @ Yf[a - t0:b - t0]                      # (2 Nb, d)
+        else:                                     # across a seam
+            Gw = (F[:, lo - a:hi - a] @ Yf[lo - t0:hi - t0] if hi > lo
+                  else torch.zeros_like(psd[:1]).expand(2 * Nb, -1))
+            Gw = comm.psum(Gw.contiguous(), mesh, "frame")
+            if owner != f:
+                continue
+        psd = psd + (Gw[:Nb] ** 2 + Gw[Nb:] ** 2)
+    sel = comm.psum(psd, mesh, "frame") * multj[:, None] / n_windows
+    return _band_sigma(sel, 0, method).reshape(Y.shape[1:])
+
+
+def _band_dft(T: int, freq_range, device):
+    """The Welch geometry of T frames and the windowed DFT rows of the
+    band's bins: (F (2 Nb, seg), the bins' scale (Nb,), Nb, seg, step,
+    n_windows)."""
     seg, step, n_windows, nfft = _welch_geometry(T)
     win = _hamming(seg)
     scale = 1.0 / float(np.sum(win ** 2))
@@ -82,18 +133,10 @@ def noise_psd_frames(Y: torch.Tensor, freq_range=(0.25, 0.5),
     ang = -2.0 * np.pi * np.outer(bins, np.arange(seg)) / nfft
     F = np.concatenate([(np.cos(ang) * win).astype(np.float32),
                         (np.sin(ang) * win).astype(np.float32)], axis=0)
-    F = torch.as_tensor(F, device=Y.device)                 # (2 Nb, seg)
+    F = torch.as_tensor(F, device=device)                   # (2 Nb, seg)
     multj = torch.as_tensor((mult * scale / 2.0).astype(np.float32),
-                            device=Y.device)
-    Nb = len(bins)
-    Yf = Y.reshape(T, -1)
-    psd = torch.zeros((Nb, Yf.shape[1]), dtype=torch.float32,
-                      device=Y.device)
-    for w in range(n_windows):
-        Gw = F @ Yf[w * step:w * step + seg]                # (2 Nb, d)
-        psd = psd + (Gw[:Nb] ** 2 + Gw[Nb:] ** 2)
-    sel = psd * multj[:, None] / n_windows
-    return _band_sigma(sel, 0, method).reshape(Y.shape[1:])
+                            device=device)
+    return F, multj, len(bins), seg, step, n_windows
 
 
 def noise_std(y: torch.Tensor) -> torch.Tensor:

@@ -6,6 +6,13 @@ Every pixel has the same ring-offset pattern (out-of-FOV neighbors are
 zero and their weights pinned to 0), so the d small normal-equation solves
 batch into one gather -> Gram -> Cholesky pipeline. The ring apply runs in
 the stencil kernel of :mod:`cnmf_e_tpu_torch.ops.ring_kernels`.
+
+``mesh``: the movie and the weights are this rank's blocks (T/frame,
+H/patch, W) and (H/patch W, ...), on the ``ssub`` grid where there is
+one. Every ring apply takes the ring's reach in halo rows from the patch
+neighbours and runs K6 on the padded slab (:func:`apply_ring`); the fit
+gathers its strided frames over 'frame' and fits the rank's pixels from
+its slab and a halo (:func:`fit_ring_weights_mesh`).
 """
 
 from __future__ import annotations
@@ -82,7 +89,10 @@ def fit_ring_weights(Bf: torch.Tensor, H: int, W: int, radius: int,
     idx, valid = idx[r0 * W:r1 * W], valid[r0 * W:r1 * W]
     d = (r1 - r0) * W
     Bf_flat = F.pad(Bf, (m, m, m, m)).reshape(T, -1)
-    y_flat = Bf[:, r0:r1].reshape(T, d)
+    # contiguous, as a whole field of view's rows are: a slab's rows
+    # inside a halo would be a strided view, which the card reduces in
+    # another order
+    y_flat = Bf[:, r0:r1].reshape(T, d).contiguous()
     m_flat = (None if mask is None
               else mask[:, r0:r1].to(torch.float32).reshape(T, d))
     idx_t = torch.as_tensor(idx, device=dev)
@@ -148,6 +158,43 @@ def fit_ring_weights(Bf: torch.Tensor, H: int, W: int, radius: int,
                        w0=sol[:, R].contiguous())
 
 
+def stride_grid(T: int, stride: int, mesh) -> Tuple[int, list]:
+    """This rank's first local frame on the global stride grid (frames 0,
+    stride, 2 stride, ...) and the grid frames each 'frame' rank holds
+    (None without a mesh)."""
+    if mesh is None:
+        return 0, None
+    Tl = T // mesh.n_frame
+
+    def n_in(a, b):
+        return len(range(-(-a // stride) * stride, b, stride))
+    return ((-(mesh.f * Tl)) % stride,
+            [n_in(g * Tl, (g + 1) * Tl) for g in range(mesh.n_frame)])
+
+
+def fit_ring_weights_mesh(Bf: torch.Tensor, H: int, W: int, radius: int,
+                          mesh, grid_sizes: Optional[list] = None,
+                          ridge_eps: float = 1e-5) -> RingWeights:
+    """The ring weights of this rank's pixels from its rows and frames of
+    the (centred, clamped, strided) residual ``Bf`` (T'/frame, H/patch,
+    W) of an H-row field of view: the slab takes the ring's reach in halo
+    rows from its patch neighbours, the frames of the other 'frame' ranks
+    (``grid_sizes`` of them each, default equal), and fits its own rows
+    (:func:`fit_ring_weights` with ``rows`` and ``fov_rows``). Without a
+    mesh, the whole field of view's fit."""
+    if mesh is None:
+        return fit_ring_weights(Bf, H, W, radius, ridge_eps=ridge_eps)
+    Hl = Bf.shape[1]
+    h0 = mesh.p * Hl
+    reach = int(np.abs(ring_offsets(radius)[:, 0]).max())
+    Bp = comm.all_gather_cat(comm.halo_rows(Bf, reach, mesh), 0,
+                             mesh.frame_group, grid_sizes)
+    return fit_ring_weights(
+        Bp, Hl + 2 * reach, W, radius, ridge_eps=ridge_eps,
+        rows=(reach, reach + Hl),
+        fov_rows=(max(reach - h0, 0), min(reach + H - h0, Hl + 2 * reach)))
+
+
 def apply_ring(weights: RingWeights, X: torch.Tensor, H: int, W: int,
                radius: int, include_intercept: bool = True,
                mesh=None) -> torch.Tensor:
@@ -179,7 +226,7 @@ def fit_ring_model(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
                    sn: Optional[torch.Tensor] = None,
                    thresh_outlier: float = 10.0,
                    frame_cap_factor: int = 100, ridge_eps: float = 1e-5,
-                   ssub: int = 1
+                   ssub: int = 1, mesh=None
                    ) -> Tuple[RingWeights, torch.Tensor, torch.Tensor]:
     """Full ring-background fit. Y: (T, H, W); A: (K, H, W); C: (K, T).
     Returns (weights, b0 (H, W), Bf used for the fit).
@@ -188,26 +235,35 @@ def fit_ring_model(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
       Bf = (Y - mean(Y)) - A (C - mean(C)), box-downsampled by ssub
       outlier clamp at W_old(Bf) + thresh_outlier sn (fit_ring_model.m:50-56)
       frame stride-subsample to frame_cap_factor * R (fit_ring_model.m:58-91)
-    """
+
+    ``mesh``: Y, A, C and sn are this rank's blocks and the weights, b0
+    and Bf returned are too (the module docstring); a slab's rows are a
+    multiple of ``ssub``."""
     T, H, W = Y.shape
     K = A.shape[0]
-    Ymean = Y.mean(dim=0)
-    Cmean = C.mean(dim=-1)
+    Hf, Tf = H, T                       # the field of view's rows, frames
+    if mesh is not None:
+        Hf, Tf = H * mesh.n_patch, T * mesh.n_frame
+    Ymean = comm.frame_mean(Y, 0, mesh)
+    Cmean = comm.frame_mean(C, -1, mesh)
     b0 = Ymean - (Cmean @ A.reshape(K, -1)).reshape(H, W)
     Cc = C - Cmean[:, None]
     Bf = (Y - Ymean[None]) - (Cc.T @ A.reshape(K, -1)).reshape(T, H, W)
-    Hs, Ws, radius_s = _ssub_geometry(H, W, radius, ssub)
+    Hs, Ws, radius_s = _ssub_geometry(Hf, W, radius, ssub)
     if ssub > 1:
         Bf = box_downsample(Bf, ssub=ssub)
     if W_old is not None and sn is not None and np.isfinite(thresh_outlier):
         sn_s = box_downsample(sn[None], ssub=ssub)[0] if ssub > 1 else sn
         pred = apply_ring(W_old, Bf, Hs, Ws, radius_s,
-                          include_intercept=False)
+                          include_intercept=False, mesh=mesh)
         Bf = torch.where(Bf > pred + thresh_outlier * sn_s[None], pred, Bf)
     R = ring_offsets(radius_s).shape[0]
     nmax = frame_cap_factor * R
-    Bf_fit = Bf[::int(np.ceil(T / nmax))] if T > nmax else Bf
-    weights = fit_ring_weights(Bf_fit, Hs, Ws, radius_s, ridge_eps=ridge_eps)
+    stride = int(np.ceil(Tf / nmax)) if Tf > nmax else 1
+    first, sizes = stride_grid(Tf, stride, mesh)
+    Bf_fit = Bf[first::stride] if stride > 1 else Bf
+    weights = fit_ring_weights_mesh(Bf_fit, Hs, Ws, radius_s, mesh, sizes,
+                                    ridge_eps=ridge_eps)
     return weights, b0, Bf_fit
 
 
@@ -263,15 +319,18 @@ def local_background(Y: torch.Tensor, radius: int,
 def reconstruct_ring_background(weights: RingWeights, Y: torch.Tensor,
                                 A: torch.Tensor, C: torch.Tensor,
                                 b0: torch.Tensor, radius: int,
-                                ssub: int = 1) -> torch.Tensor:
+                                ssub: int = 1, mesh=None) -> torch.Tensor:
     """B = W (Y - b0 - A C) + w0 + b0 (``Sources2D.m:1247-1355``); with
     ssub > 1 the ring predicts on the coarse grid and upsamples
-    bilinearly."""
+    bilinearly. ``mesh``: every argument is this rank's block, and so is
+    B."""
     T, H, W = Y.shape
     K = A.shape[0]
     X = Y - b0[None] - (C.T @ A.reshape(K, -1)).reshape(T, H, W)
     if ssub <= 1:
-        return apply_ring(weights, X, H, W, radius) + b0[None]
-    Hs, Ws, radius_s = _ssub_geometry(H, W, radius, ssub)
-    Bs = apply_ring(weights, box_downsample(X, ssub=ssub), Hs, Ws, radius_s)
-    return resize_linear(Bs, (H, W)) + b0[None]
+        return apply_ring(weights, X, H, W, radius, mesh=mesh) + b0[None]
+    Hf = H if mesh is None else H * mesh.n_patch
+    Hs, Ws, radius_s = _ssub_geometry(Hf, W, radius, ssub)
+    Bs = apply_ring(weights, box_downsample(X, ssub=ssub), Hs, Ws, radius_s,
+                    mesh=mesh)
+    return resize_linear(Bs, (H, W), mesh=mesh) + b0[None]

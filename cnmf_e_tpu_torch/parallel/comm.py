@@ -11,8 +11,14 @@ process groups:
   * :func:`all_gather_cat` — the blocks of every member, concatenated
     along one dimension, sizes equal or given;
   * :func:`halo_rows` — a slab's rows [h0 - r, h1 + r) from its patch
-    neighbours, zeros outside the field of view, across several slabs
-    when a slab holds fewer than r rows;
+    neighbours, outside the field of view zeros (the ring, the boxes, the
+    correlation image) or copies of the edge row (the replicate-padded
+    filters and the clamped resize), across several slabs when a slab
+    holds fewer than r rows;
+  * :func:`frame_mean`, :func:`norm` — a mean over the frame-sharded
+    time axis, an l2 norm over a sharded axis;
+  * :func:`argmax_rows` — per row, the flat index of the maximum of a
+    row-sharded image, ties to the lowest index (``argmax``'s rule);
   * :func:`traces_to_neurons` / :func:`traces_to_frames` — the trace
     reshard: K over 'patch' with whole traces (the deconvolution), and
     back to T over 'frame';
@@ -83,10 +89,73 @@ def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     return _reduce(x, group, dist.ReduceOp.MAX)
 
 
+def all_reduce_min(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise minimum of ``x`` over the members of ``group``."""
+    return _reduce(x, group, dist.ReduceOp.MIN)
+
+
 def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """``x`` summed over the mesh axis ``axis`` ("frame" or "patch");
     ``x`` unchanged without a mesh."""
     return x if mesh is None else all_reduce_sum(x, mesh.group(axis))
+
+
+def pmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the mesh axis ``axis``;
+    ``x`` unchanged without a mesh."""
+    return x if mesh is None else all_reduce_max(x, mesh.group(axis))
+
+
+def pmin(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The elementwise minimum of ``x`` over the mesh axis ``axis``;
+    ``x`` unchanged without a mesh."""
+    return x if mesh is None else all_reduce_min(x, mesh.group(axis))
+
+
+def frame_mean(x: torch.Tensor, dim: int, mesh, keepdim: bool = False,
+               n: Optional[int] = None) -> torch.Tensor:
+    """The mean of ``x`` along ``dim``, the time axis sharded over 'frame':
+    the sum over 'frame' over the whole length ``n`` (by default that of
+    equal blocks; pass it where the blocks differ, as the strided frames
+    of a stride grid do). Without a mesh, or on a single 'frame' rank,
+    ``x.mean`` itself, so a 1 x 1 mesh rounds as one process does."""
+    if mesh is None or mesh.n_frame == 1:
+        return x.mean(dim=dim, keepdim=keepdim)
+    if n is None:
+        n = x.shape[dim] * mesh.n_frame
+    return all_reduce_sum(x.sum(dim=dim, keepdim=keepdim),
+                          mesh.frame_group) / n
+
+
+def norm(x: torch.Tensor, dim: int, mesh, axis: str) -> torch.Tensor:
+    """The l2 norm of ``x`` along ``dim``, an axis sharded over the mesh
+    axis ``axis``: the root of the squares summed over it. Without a
+    mesh, or on a single rank of ``axis``, ``torch.linalg.norm`` itself."""
+    if mesh is None or dist.get_world_size(mesh.group(axis)) == 1:
+        return torch.linalg.norm(x, dim=dim)
+    return torch.sqrt(all_reduce_sum((x * x).sum(dim=dim),
+                                     mesh.group(axis)))
+
+
+def argmax_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Per leading index, the flat index into the full (H, W) field of
+    view of the maximum of ``x`` (..., Hp, W), this rank's rows of it;
+    ties go to the lowest flat index, as ``argmax`` breaks them. The
+    local maxima and their global indices are gathered over 'patch'; the
+    slabs lie in row order, so the first slab holding the maximum holds
+    its lowest index."""
+    Hp, W = x.shape[-2:]
+    flat = x.reshape(x.shape[:-2] + (-1,))
+    idx = flat.argmax(dim=-1)
+    val = torch.gather(flat, -1, idx[..., None])[..., 0]
+    if mesh is None:
+        return idx
+    idx = idx + mesh.p * Hp * W
+    both = torch.stack([val, idx.to(val.dtype)], dim=-1)[None]
+    allp = all_gather_cat(both, 0, mesh.patch_group)    # (n_patch, ..., 2)
+    best = allp[..., 0].argmax(dim=0)
+    # flat indices below 2^24 travel exactly in float32
+    return torch.gather(allp[..., 1], 0, best[None])[0].long()
 
 
 def all_gather_cat(x: torch.Tensor, dim: int, group,
@@ -110,14 +179,19 @@ def all_gather_cat(x: torch.Tensor, dim: int, group,
                      dim=dim)
 
 
-def halo_rows(x: torch.Tensor, r: int, mesh) -> torch.Tensor:
+def halo_rows(x: torch.Tensor, r: int, mesh,
+              edge: str = "zeros") -> torch.Tensor:
     """The slab ``x`` (..., Hp, W), this rank's rows [h0, h1) of the
     field of view, extended by the ``r`` rows above and below it: rows
-    [h0 - r, h1 + r), from the patch neighbours, zeros outside the field
-    of view. Where a slab holds fewer than ``r`` rows the halo spans
-    several slabs. One all-gather of every slab's edge rows over 'patch'."""
+    [h0 - r, h1 + r), from the patch neighbours; outside the field of
+    view zeros, or with ``edge="replicate"`` copies of its first and last
+    row (``F.pad(mode="replicate")``). Where a slab holds fewer than
+    ``r`` rows the halo spans several slabs. One all-gather of every
+    slab's edge rows over 'patch'."""
     if r <= 0:
         return x
+    if edge not in ("zeros", "replicate"):
+        raise ValueError(f"halo edge {edge!r}")
     Hp = x.shape[-2]
     n, p = mesh.n_patch, mesh.p
     e = min(r, Hp)
@@ -125,10 +199,14 @@ def halo_rows(x: torch.Tensor, r: int, mesh) -> torch.Tensor:
     # (n, 2, ..., e, W): every patch rank's top and bottom edge rows
     allp = all_gather_cat(edges[None], 0, mesh.patch_group)
     hops = -(-r // e)
-    zeros = torch.zeros_like(edges[0])
-    above = torch.cat([allp[q, 1] if q >= 0 else zeros
+    if edge == "zeros":
+        top = bottom = torch.zeros_like(edges[0])
+    else:
+        top = allp[0, 0][..., :1, :].expand_as(edges[0])
+        bottom = allp[n - 1, 1][..., e - 1:, :].expand_as(edges[0])
+    above = torch.cat([allp[q, 1] if q >= 0 else top
                        for q in range(p - hops, p)], dim=-2)
-    below = torch.cat([allp[q, 0] if q < n else zeros
+    below = torch.cat([allp[q, 0] if q < n else bottom
                        for q in range(p + 1, p + 1 + hops)], dim=-2)
     return torch.cat([above[..., above.shape[-2] - r:, :], x,
                       below[..., :r, :]], dim=-2)
