@@ -131,7 +131,28 @@ Phases (each fails the script when its check fails):
      rank printed; 11' the same fit on a 1 x 1 NCCL mesh against
      mesh=None in one process (bit-identical, or within 1e-6 of scale
      with the difference printed).
-No plain kernel version may run on the paths of phases 4 to 11, and
+ 12. every option and method of CNMFE on the mesh, in one spawn of a
+     2 x 2 gloo mesh sharing the card (each rank's wall, peak memory,
+     collective bytes and seconds by stage and launches printed): 12a
+     phase 9a's local + ellipse fit, held to phase 9a's state (the same
+     n_active, F1 >= 0.8, matched footprints and traces at correlation
+     >= min(0.999, 1 - 8x phase 9a's own one-ulp drift)), K1, the solve
+     entry and K6 on every rank, and the local fit's bytes by both
+     exchanges printed; 12b preset_2p (svd background of rank 3,
+     hals_thresh, decorrelate) on phase 7c's 256x256x2000 2p movie, held
+     to the same fit in one process (n_active, recall >= 0.75, the same
+     correlation bars, the background f^T b + b0 within its own drift),
+     K1 and the solve entry on every rank; 12c on a 128x128x1000 movie
+     the nmf background with nnls on the decimated (ssub 2, tsub 2) and
+     detrended (nk 3) init, and lars, each held to one process, then a
+     fit with a run log written by rank 0, one resumed from its init
+     snapshot (held to one process resumed from it) and every method
+     (dff at the whole session and a 101-frame window, background,
+     reconstruction, residual, compute_rss) on each rank's block against
+     one process on the whole movie; no pickled state sent; 12' 12a and
+     12b on a 1 x 1 NCCL mesh against mesh=None (bit-identical, or
+     within 1e-6 of scale with the difference printed).
+No plain kernel version may run on the paths of phases 4 to 12, and
 their OASIS kernels must launch through the solve entry.
 The line before the last holds one JSON object with the per-kernel
 results; the last line is {"ok": true, "device": {...}}.
@@ -2028,7 +2049,7 @@ def phase9a_local_ellipse():
     require(solves > 0, "the local + ellipse fit made no OASIS solve")
     require(finite, "the local + ellipse fit gave non-finite values")
     require(f1["f1"] >= 0.8, f"local + ellipse F1 {f1['f1']:.4f} < 0.8")
-    return launches, state, gt, params
+    return launches, state, gt, params, wall, peak
 
 
 def phase9b_consistency():
@@ -2251,10 +2272,14 @@ def phase9c_utilities(state, gt, params):
 
 
 def phase9_local():
-    launches, state, gt, params = phase9a_local_ellipse()
+    """Phases 9a to 9c: 9a's launches, and its fit as phase 12a's
+    reference (A, C of the active neurons, wall, peak)."""
+    launches, state, gt, params, wall, peak = phase9a_local_ellipse()
     phase9b_consistency()
     phase9c_utilities(state, gt, params)
-    return launches
+    n = int(state.n_active())
+    return launches, dict(A=state.A[:n].cpu().numpy(),
+                          C=state.C[:n].cpu().numpy(), wall=wall, peak=peak)
 
 
 # ------------------------------------------------------------------ #
@@ -2517,21 +2542,105 @@ def matched_corr(A, C, A_ref, C_ref) -> dict:
                       for i, j, _ in pairs))
 
 
-def fit_self_drift(Y, params, ref) -> dict:
-    """How far phase 4's one-process fit moves when Y moves by one ulp up
-    and down (np.nextafter): one less the least matched footprint and
-    trace correlation with phase 4's state, and the neuron counts."""
+def fit_self_drift(Y, params, ref, n_outer=2, resume_from=None) -> dict:
+    """How far a one-process fit (``ref``: A, C of its active neurons, and
+    B, its low-rank background, where it has one) moves when Y moves by
+    one ulp up and down (np.nextafter): one less the least matched
+    footprint and trace correlation with ``ref``, the background's
+    relative difference, and the neuron counts."""
     out = dict(A=0.0, C=0.0, n=[])
     for to in (np.inf, -np.inf):
         st = CNMFE(params, device=DEV).fit(torch.as_tensor(
-            np.nextafter(Y, np.float32(to)), device=DEV), n_outer=2)
+            np.nextafter(Y, np.float32(to)), device=DEV), n_outer=n_outer,
+            resume_from=resume_from)
         n = int(st.n_active())
         out["n"].append(n)
         c = matched_corr(st.A[:n].cpu().numpy(), st.C[:n].cpu().numpy(),
                          ref["A"], ref["C"])
         out = dict(out, A=max(out["A"], 1 - c["A"]),
                    C=max(out["C"], 1 - c["C"]))
+        if "B" in ref:
+            B = lowrank_B(state_to_numpy(st))
+            out["B"] = max(out.get("B", 0.0), float(
+                np.linalg.norm(B - ref["B"]) / np.linalg.norm(ref["B"])))
     return out
+
+
+def lowrank_B(st: dict) -> np.ndarray:
+    """The low-rank background f^T b + b0 (d, T) of a state's arrays."""
+    b, f, b0 = (np.asarray(st[k], np.float64) for k in ("bg_b", "bg_f",
+                                                       "b0"))
+    return b.reshape(b.shape[0], -1).T @ f + b0.reshape(-1)[:, None]
+
+
+def hold_to_one_process(what, st, ref, drift, gt, gate, bar_gate):
+    """Print and require: ``st`` (full state arrays) against the one-
+    process ``ref`` (A, C of its active neurons), with the bars
+    min(0.999, 1 - 8 x drift); ``gate``: "f1" or "recall" against the
+    planted neurons at ``bar_gate``. Returns the line's numbers."""
+    n = int(st["active"].sum())
+    A, C = st["A"][:n], st["C"][:n]
+    finite = bool(np.isfinite(A).all() and np.isfinite(C).all())
+    score = detection_f1(A, gt.A)
+    corr = (matched_corr(A, C, ref["A"], ref["C"])
+            if n == ref["A"].shape[0] else dict(A=0.0, C=0.0))
+    bar = {k: min(FIT_CORR, 1 - 8 * drift[k]) for k in ("A", "C")}
+    require(finite, f"{what}: non-finite values")
+    require(n == ref["A"].shape[0], f"{what}: n_active {n} != one "
+            f"process's {ref['A'].shape[0]}")
+    require(score[gate] >= bar_gate, f"{what}: {gate} {score[gate]:.4f} "
+            f"< {bar_gate}")
+    require(all(corr[k] >= bar[k] for k in bar),
+            f"{what} differs from one process: {corr}, bars {bar}")
+    return dict(n=n, score=score, corr=corr, bar=bar)
+
+
+def mesh_lines(what, infos, ref_wall, ref_peak, path):
+    """Check each rank's counted run and print its wall, peak, launches
+    and collectives by stage."""
+    for rank, info in enumerate(infos):
+        check_rank_path(info, path, f"{what} rank {rank}")
+    require(all(i["broadcasts"] == 0 for i in infos),
+            f"{what}: a pickled state was sent")
+    require(all(np.array_equal(i["active"], infos[0]["active"])
+                for i in infos), f"{what}: the ranks' active masks differ")
+    print(f"phase {what}: wall per rank "
+          f"{[round(i['wall'], 3) for i in infos]} s against one "
+          f"process's {ref_wall:.3f} s; peak per rank "
+          f"{[round(i['peak'] / 2**30, 3) for i in infos]} GiB against "
+          f"{ref_peak / 2**30:.3f}; {ranks_line(infos)}", flush=True)
+    for rank, info in enumerate(infos):
+        stages = {k: round(v, 4) for k, v in info["stages"].items()}
+        in_comm = {k: [b, round(sec, 4)]
+                   for k, (b, sec) in info["stage_comm"].items()}
+        print(f"phase {what}: rank {rank} stage seconds "
+              f"{json.dumps(stages)}; per stage, bytes handed to "
+              f"collectives and host seconds inside them "
+              f"{json.dumps(in_comm)}; launches "
+              f"{json.dumps(info['launches'])}", flush=True)
+
+
+def check_identity(what: str, pair: dict, path: set) -> dict:
+    """Print and require: a fit on a 1 x 1 NCCL mesh against mesh=None
+    (``_selftest.card_fit_identity``'s pair), bit-identical or within
+    1e-6 of scale. Returns the mesh run's launches."""
+    mm, none = pair["mesh"], pair["none"]
+    check_rank_path(mm, path, f"{what} NCCL mesh fit")
+    same = all(np.array_equal(mm["state"][k], none["state"][k])
+               for k in none["state"])
+    diff = {k: float(np.abs(mm["state"][k].astype(np.float64)
+                            - none["state"][k]).max()
+                     / max(float(np.abs(none["state"][k]).max()), 1e-30))
+            for k in none["state"] if k != "active"}
+    print(f"phase {what}: CNMFE.fit on a 1 x 1 NCCL mesh against mesh=None, "
+          f"one process: bit-identical {same}, max abs difference / scale "
+          f"{json.dumps(diff)}; wall {mm['wall']:.3f} s against "
+          f"{none['wall']:.3f} s, {mm['comm']['calls']} collectives, "
+          f"{mm['comm']['seconds']:.4f} s in them", flush=True)
+    require(np.array_equal(mm["state"]["active"], none["state"]["active"])
+            and (same or max(diff.values()) <= 1e-6),
+            f"{what} NCCL mesh fit differs from mesh=None: {diff}")
+    return dict(mm["launches"])
 
 
 def phase11_fit_mesh(tmp: str, ref: dict):
@@ -2558,51 +2667,20 @@ def phase11_fit_mesh(tmp: str, ref: dict):
                          device="cuda", args=(y_path, warm_path, pd, 2),
                          timeout=MESH_TIMEOUT)
     spawn_s = time.perf_counter() - t0
-    for rank, info in enumerate(infos):
-        check_rank_path(info, PATH_EXACT, f"mesh fit rank {rank}")
-    st = infos[0]["state"]
-    n = int(st["active"].sum())
-    A, C = st["A"][:n], st["C"][:n]
-    n_ref = ref["A"].shape[0]
-    agree = all(np.array_equal(i["active"], st["active"]) for i in infos)
-    finite = bool(np.isfinite(A).all() and np.isfinite(C).all())
-    f1 = detection_f1(A, gt.A)
-    corr = (matched_corr(A, C, ref["A"], ref["C"]) if n == n_ref
-            else dict(A=0.0, C=0.0))
-    bar = {k: min(FIT_CORR, 1 - 8 * self_drift[k]) for k in ("A", "C")}
-    walls = [round(i["wall"], 3) for i in infos]
-    peaks = [round(i["peak"] / 2**30, 3) for i in infos]
+    mesh_lines("11", infos, ref["wall"], ref["peak"], PATH_EXACT)
+    res = hold_to_one_process("11", infos[0]["state"], ref, self_drift, gt,
+                              "f1", 0.8)
     print(f"phase 11: CNMFE(mesh=...).fit preset_1p 256x256x2000 K_max=192 "
           f"n_outer=2 on a 2 x 2 gloo mesh, 4 ranks on {card}, blocks "
-          f"{[i['block'] for i in infos]}: n_active {n} (phase 4: {n_ref}), "
-          f"F1 {f1['f1']:.4f} (precision {f1['precision']:.4f}, recall "
-          f"{f1['recall']:.4f}), every rank's active mask the same {agree}, "
-          f"finite {finite}; against phase 4's state the least matched "
-          f"footprint correlation {corr['A']:.6f}, trace {corr['C']:.6f}; "
-          f"phase 4's one-ulp self-drift 1 - corr: footprints "
-          f"{self_drift['A']:.3e}, traces {self_drift['C']:.3e} (n_active "
-          f"{self_drift['n']}); bars footprints {bar['A']:.6f}, traces "
-          f"{bar['C']:.6f}; wall per rank {walls} s against phase 4's "
-          f"{ref['wall']:.3f} s (one process), pickled broadcasts "
-          f"{[i['broadcasts'] for i in infos]}, spawn and both fits "
-          f"{spawn_s:.1f} s; peak memory per rank {peaks} GiB against phase "
-          f"4's {ref['peak'] / 2**30:.3f}; {ranks_line(infos)}", flush=True)
-    for rank, info in enumerate(infos):
-        stages = {k: round(v, 4) for k, v in info["stages"].items()}
-        in_comm = {k: [b, round(sec, 4)]
-                   for k, (b, sec) in info["stage_comm"].items()}
-        print(f"phase 11: rank {rank} stage seconds {json.dumps(stages)}; "
-              f"per stage, bytes handed to collectives and host seconds "
-              f"inside them {json.dumps(in_comm)}; launches "
-              f"{json.dumps(info['launches'])}", flush=True)
-    require(finite and agree, "mesh fit: non-finite values or ranks that "
-            "disagree on the active mask")
-    require(all(i["broadcasts"] == 0 for i in infos),
-            "the in-memory mesh fit sent a pickled state")
-    require(f1["f1"] >= 0.8, f"mesh fit F1 {f1['f1']:.4f} < 0.8")
-    require(n == n_ref, f"mesh fit n_active {n} != phase 4's {n_ref}")
-    require(all(corr[k] >= bar[k] for k in bar),
-            f"mesh fit differs from phase 4: {corr}, bars {bar}")
+          f"{[i['block'] for i in infos]}: n_active {res['n']} (phase 4: "
+          f"{ref['A'].shape[0]}), F1 {res['score']['f1']:.4f} (precision "
+          f"{res['score']['precision']:.4f}, recall "
+          f"{res['score']['recall']:.4f}); against phase 4's state the "
+          f"least matched footprint correlation {res['corr']['A']:.6f}, "
+          f"trace {res['corr']['C']:.6f}; phase 4's one-ulp self-drift "
+          f"{self_drift}; bars {res['bar']}; spawn and both fits "
+          f"{spawn_s:.1f} s", flush=True)
+    peaks = [round(i["peak"] / 2**30, 3) for i in infos]
     require(max(i["peak"] for i in infos) <= ref["peak"] / 2,
             f"a mesh rank's peak memory {peaks} GiB is over half of phase "
             f"4's {ref['peak'] / 2**30:.3f}")
@@ -2613,27 +2691,225 @@ def phase11_fit_mesh(tmp: str, ref: dict):
     one = launch.spawn(_selftest.card_fit_identity, 1, 1, backend="nccl",
                        device="cuda", args=(y_path, warm_path, pd, 2),
                        timeout=MESH_TIMEOUT)[0]
-    m, none = one["mesh"], one["none"]
-    check_rank_path(m, PATH_EXACT, "NCCL mesh fit")
-    keys = [k for k in none["state"] if k != "active"]
-    same = all(np.array_equal(m["state"][k], none["state"][k])
-               for k in none["state"])
-    diff = {k: float(np.abs(m["state"][k].astype(np.float64)
-                            - none["state"][k]).max()
-                     / max(float(np.abs(none["state"][k]).max()), 1e-30))
-            for k in keys}
-    print(f"phase 11': CNMFE.fit on a 1 x 1 NCCL mesh against mesh=None, "
-          f"one process: bit-identical {same}, max abs difference / scale "
-          f"{json.dumps(diff)}; active masks equal "
-          f"{np.array_equal(m['state']['active'], none['state']['active'])};"
-          f" wall {m['wall']:.3f} s against {none['wall']:.3f} s, "
-          f"{m['comm']['calls']} collectives, {m['comm']['seconds']:.4f} s "
-          f"in them; spawn and the fits {time.perf_counter() - t0:.1f} s",
+    per_path["fit_mesh_nccl"] = check_identity("11'", one, PATH_EXACT)
+    print(f"phase 11': spawn and the fits {time.perf_counter() - t0:.1f} s",
           flush=True)
-    require(np.array_equal(m["state"]["active"], none["state"]["active"])
-            and (same or max(diff.values()) <= 1e-6),
-            f"NCCL mesh fit differs from mesh=None: {diff}")
-    per_path["fit_mesh_nccl"] = dict(m["launches"])
+    return per_path
+
+
+# ------------------------------------------------------------------ #
+# phase 12: every option and method of CNMFE on the mesh
+# ------------------------------------------------------------------ #
+def options_2p():
+    """12b: ``preset_2p`` (the svd background of rank 3) with phase 7c's
+    CLI flags (gSig 3, gSiz 13, 192 slots), hals_thresh and decorrelate."""
+    return _selftest.with_fields(CNMFEParams.preset_2p(), {
+        "init.gSig": 3.0, "init.max_neurons": 192,
+        "spatial.algorithm": "hals_thresh", "temporal.decorrelate": True})
+
+
+def options_12c():
+    """12c's movie (128x128x1000) and its option sets, each on the 1p
+    preset with 64 slots."""
+    gt = simulate_movie(seed=17, H=128, W=128, T=1000, K=30, gSig=3.0,
+                        sn=0.1, bg_strength=1.0, min_dist=9.0,
+                        spike_rate=0.02)
+    fields = _selftest.with_fields
+    base = fields(CNMFEParams.preset_1p(), {
+        "init.max_neurons": 64, "init.seeds_per_round": 32,
+        "init.max_rounds": 6})
+    runs = {"nmf_nnls_init": fields(base, {
+                "background.model": "nmf", "background.rank": 3,
+                "spatial.algorithm": "nnls", "init.ssub": 2, "init.tsub": 2,
+                "init.nk": 3}),
+            "lars": fields(base, {"spatial.algorithm": "lars"})}
+    return gt, base, runs
+
+
+def one_process(Y, params, n_outer):
+    """A warm-up and a timed one-process fit on the card: (state, wall,
+    peak)."""
+    Yt = torch.as_tensor(Y, device=DEV)
+    CNMFE(params, device=DEV).fit(Yt, n_outer=n_outer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(DEV)
+    t0 = time.perf_counter()
+    st = CNMFE(params, device=DEV).fit(Yt, n_outer=n_outer)
+    torch.cuda.synchronize()
+    return st, time.perf_counter() - t0, torch.cuda.max_memory_allocated(DEV)
+
+
+def local_fit_bytes(H, W, T, radius, ssub, n_patch, n_frame) -> dict:
+    """The bytes one rank hands to the collectives for the local
+    background's weights, once a fit of them: the halo'd slab of all
+    its frames and its event mask (one byte a sample) gathered over
+    'frame', as ``fit_ring_weights_mesh`` does, against all-reducing
+    every pixel's partial Gram and right-hand side (R x R + R floats)
+    over 'frame'."""
+    Hs, Ws = -(-H // ssub), -(-W // ssub)
+    rs = max(int(round(radius / ssub)), 1)
+    offs = ring_kernels.ring_offsets(rs)
+    R, reach = offs.shape[0], int(np.abs(offs[:, 0]).max())
+    rows, frames = Hs // n_patch, T // n_frame
+    return dict(R=R, gather=frames * Ws * ((rows + 2 * reach) * 4 + rows),
+                grams=rows * Ws * (R * R + R) * 4)
+
+
+def phase12_options_mesh(local_ref):
+    """Every option and method of ``CNMFE`` on a 2 x 2 gloo mesh sharing
+    the card (12a-12c, one spawn), then 12a and 12b on a 1 x 1 NCCL mesh
+    against mesh=None (12'). ``local_ref``: phase 9a's fit (A, C, wall,
+    peak). Returns the launches of each counted run, summed over its
+    ranks."""
+    card = torch.cuda.get_device_name(0)
+    gt_a, params_a = fit_problem()
+    params_a = local_ellipse(params_a)
+    gt_b, params_b = movie_2p(), options_2p()
+    gt_c, base_c, runs_c = options_12c()
+    t0 = time.perf_counter()
+    drift_a = fit_self_drift(gt_a.Y, params_a, local_ref)
+    st_b, wall_b, peak_b = one_process(gt_b.Y, params_b, 2)
+    n_b = int(st_b.n_active())
+    ref_b = dict(A=st_b.A[:n_b].cpu().numpy(), C=st_b.C[:n_b].cpu().numpy(),
+                 B=lowrank_B(state_to_numpy(st_b)))
+    drift_b = fit_self_drift(gt_b.Y, params_b, ref_b)
+    refs_c = {}
+    for name, p in runs_c.items():
+        st, wall, peak = one_process(gt_c.Y, p, 1)
+        n = int(st.n_active())
+        refs_c[name] = dict(A=st.A[:n].cpu().numpy(),
+                            C=st.C[:n].cpu().numpy(), wall=wall, peak=peak)
+        refs_c[name]["drift"] = fit_self_drift(gt_c.Y, p, refs_c[name],
+                                               n_outer=1)
+    print(f"phase 12: one-process references and one-ulp drifts in "
+          f"{time.perf_counter() - t0:.1f} s: 12a drift {drift_a}, 12b "
+          f"wall {wall_b:.3f} s, n_active {n_b}, drift {drift_b}, 12c "
+          f"{ {k: (round(v['wall'], 3), v['drift']) for k, v in refs_c.items()} }",
+          flush=True)
+    per_path = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_12_") as tmp:
+        paths = {}
+        for name, Y in (("a", gt_a.Y), ("b", gt_b.Y), ("c", gt_c.Y),
+                        ("warm", simulate_movie(
+                            seed=3, H=64, W=64, T=2000, K=8, gSig=3.0,
+                            sn=0.1, bg_strength=1.0, min_dist=9.0,
+                            spike_rate=0.02).Y)):
+            paths[name] = os.path.join(tmp, f"movie_{name}.npy")
+            np.save(paths[name], Y)
+        log_dir = os.path.join(tmp, "runlog")
+        os.makedirs(log_dir)
+        pa, pb = dataclasses.asdict(params_a), dataclasses.asdict(params_b)
+        jobs = [("a", "card_fit", (paths["a"], paths["warm"], pa, 2)),
+                ("b", "card_fit", (paths["b"], paths["warm"], pb, 2))]
+        jobs += [(f"c_{name}", "card_fit", (paths["c"], None,
+                                            dataclasses.asdict(p), 1))
+                 for name, p in runs_c.items()]
+        jobs.append(("c_methods", "card_methods",
+                     (paths["c"], dataclasses.asdict(base_c), 1, log_dir)))
+        t0 = time.perf_counter()
+        out = launch.spawn(_selftest.cases, 2, 2, backend="gloo",
+                           device="cuda", args=(jobs,),
+                           timeout=MESH_TIMEOUT)
+        spawn_s = time.perf_counter() - t0
+
+        # 12a: phase 9a's local + ellipse fit
+        infos = [o["a"] for o in out]
+        mesh_lines("12a", infos, local_ref["wall"], local_ref["peak"],
+                   PATH_EXACT)
+        res = hold_to_one_process("12a", infos[0]["state"], local_ref,
+                                  drift_a, gt_a, "f1", 0.8)
+        nb = local_fit_bytes(256, 256, 2000, params_a.background.ring_radius,
+                             params_a.background.ssub, 2, 2)
+        print(f"phase 12a: CNMFE(mesh=...).fit preset_1p, local "
+              f"background, ellipse search, 256x256x2000 K_max=192 "
+              f"n_outer=2 on a 2 x 2 gloo mesh on {card}: n_active "
+              f"{res['n']} (phase 9a: {local_ref['A'].shape[0]}), F1 "
+              f"{res['score']['f1']:.4f}; least matched footprint "
+              f"correlation {res['corr']['A']:.6f}, trace "
+              f"{res['corr']['C']:.6f}; bars {res['bar']}; phase 9a's "
+              f"one-ulp self-drift {drift_a}; the local weights' exchange "
+              f"a rank and fit (R = {nb['R']}): frames gathered "
+              f"{nb['gather']} B, per-pixel Grams all-reduced would be "
+              f"{nb['grams']} B", flush=True)
+        per_path["options_local_ellipse_mesh"] = summed_launches(infos)
+
+        # 12b: preset_2p with hals_thresh and decorrelate
+        infos = [o["b"] for o in out]
+        mesh_lines("12b", infos, wall_b, peak_b, PATH_2P)
+        require(all(i["launches"]["ring_stencil"] == 0 for i in infos),
+                "12b launched the ring kernel")
+        res = hold_to_one_process("12b", infos[0]["state"], ref_b, drift_b,
+                                  gt_b, "recall", 0.75)
+        B = lowrank_B(infos[0]["state"])
+        b_err = float(np.linalg.norm(B - ref_b["B"])
+                      / np.linalg.norm(ref_b["B"]))
+        b_bar = 8 * max(drift_b["B"], 1e-6)
+        print(f"phase 12b: CNMFE(mesh=...).fit preset_2p (svd rank 3, "
+              f"hals_thresh, decorrelate) 256x256x2000 K_max=192 n_outer=2 "
+              f"on a 2 x 2 gloo mesh on {card}: n_active {res['n']} (one "
+              f"process: {n_b}), recall {res['score']['recall']:.4f}, F1 "
+              f"{res['score']['f1']:.4f}; least matched footprint "
+              f"correlation {res['corr']['A']:.6f}, trace "
+              f"{res['corr']['C']:.6f}; bars {res['bar']}; background "
+              f"f^T b + b0 relative difference {b_err:.3e} (bar {b_bar:.3e}"
+              f", 8x the one-process fit's own)", flush=True)
+        require(b_err <= b_bar, f"12b background differs: {b_err:.3e} > "
+                f"{b_bar:.3e}")
+        per_path["options_2p_mesh"] = summed_launches(infos)
+
+        # 12c: the other options, the methods, run_log and resume_from
+        for name, p in runs_c.items():
+            infos = [o[f"c_{name}"] for o in out]
+            ref = refs_c[name]
+            path = PATH_2P if p.background.model == "nmf" else PATH_EXACT
+            mesh_lines(f"12c {name}", infos, ref["wall"], ref["peak"], path)
+            res = hold_to_one_process(f"12c {name}", infos[0]["state"], ref,
+                                      ref["drift"], gt_c, "f1", 0.8)
+            print(f"phase 12c {name}: 128x128x1000 K_max=64 n_outer=1: "
+                  f"n_active {res['n']}, F1 {res['score']['f1']:.4f}; "
+                  f"least matched footprint correlation "
+                  f"{res['corr']['A']:.6f}, trace {res['corr']['C']:.6f}; "
+                  f"bars {res['bar']}", flush=True)
+            per_path[f"options_{name}_mesh"] = summed_launches(infos)
+        m = out[0]["c_methods"]
+        require(all(o["c_methods"]["broadcasts"] == 0 for o in out),
+                "12c methods: a pickled state was sent")
+        require([s.split("_")[2] for s in m["snaps"]] == ["init", "final"],
+                f"12c run log snapshots {m['snaps']}")
+        st_r = CNMFE(base_c, device=DEV).fit(gt_c.Y, n_outer=1,
+                                             resume_from=m["snap"])
+        n = int(st_r.n_active())
+        ref_r = dict(A=st_r.A[:n].cpu().numpy(), C=st_r.C[:n].cpu().numpy())
+        drift_r = fit_self_drift(gt_c.Y, base_c, ref_r, n_outer=1,
+                                 resume_from=m["snap"])
+        res = hold_to_one_process("12c resume_from", m["resumed"], ref_r,
+                                  drift_r, gt_c, "f1", 0.8)
+        errs = {k: float(f"{v:.3e}") for k, v in m["errors"].items()}
+        print(f"phase 12c: run log snapshots {m['snaps']} (rank 0); "
+              f"resumed from the init snapshot: n_active {res['n']}, least "
+              f"matched footprint correlation {res['corr']['A']:.6f}, trace "
+              f"{res['corr']['C']:.6f}, bars {res['bar']}; the methods on "
+              f"each rank's block against one process on the whole movie, "
+              f"largest difference over the mesh / scale {json.dumps(errs)}",
+              flush=True)
+        require(max(errs.values()) <= 1e-4,
+                f"12c methods differ from one process: {errs}")
+        print(f"phase 12: spawn and its fits {spawn_s:.1f} s", flush=True)
+
+        # 12': one NCCL rank, 12a and 12b against mesh=None
+        t0 = time.perf_counter()
+        one = launch.spawn(_selftest.cases, 1, 1, backend="nccl",
+                           device="cuda", args=([
+                               ("a", "card_fit_identity",
+                                (paths["a"], paths["warm"], pa, 2)),
+                               ("b", "card_fit_identity",
+                                (paths["b"], paths["warm"], pb, 2))],),
+                           timeout=MESH_TIMEOUT)[0]
+        for what, path in (("a", PATH_EXACT), ("b", PATH_2P)):
+            per_path[f"options_{what}_mesh_nccl"] = check_identity(
+                f"12{what}'", one[what], path)
+        print(f"phase 12': spawn and the fits {time.perf_counter() - t0:.1f}"
+              f" s", flush=True)
     return per_path
 
 
@@ -2690,11 +2966,12 @@ def main():
                                     step_ms, stream_ref))
         per_path.update(timed_phase("11", phase11_fit_mesh, tmp, fit_ref))
     per_path.update(timed_phase("8", phase8_2p))
-    per_path["local_ellipse"] = timed_phase("9", phase9_local)
+    per_path["local_ellipse"], local_ref = timed_phase("9", phase9_local)
+    per_path.update(timed_phase("12", phase12_options_mesh, local_ref))
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
 
-    # launches: the sum over the main-path runs of phases 4 to 11 (phases
-    # 10 and 11 summed over their ranks)
+    # launches: the sum over the main-path runs of phases 4 to 12 (phases
+    # 10 to 12 summed over their ranks)
     launches = {k: sum(p[k] for p in per_path.values())
                 for k in cuda_build.KERNELS}
     print(f"launches per main-path run: {json.dumps(per_path)}", flush=True)

@@ -130,8 +130,9 @@ def shard_state(d: dict, mesh) -> CNMFEState:
 
 def state_blocks(st: CNMFEState, mesh) -> CNMFEState:
     """This rank's blocks of a full ``CNMFEState`` (``parallel/mesh.py``'s
-    layout: A, b0 and the ring weights split over 'patch' rows, the
-    traces over 'frame'; the per-neuron vectors replicated). The ring
+    layout: A, b0, the ring weights and the low-rank background's b
+    split over 'patch' rows, the traces and its f over 'frame'; the
+    per-neuron vectors replicated). The ring
     weights' pixels are those of the grid they were fitted on; traces of
     one frame (the placeholders of a state not yet deconvolved) stay
     whole."""
@@ -147,7 +148,9 @@ def state_blocks(st: CNMFEState, mesh) -> CNMFEState:
         kw["W"] = RingWeights(w=st.W.w[p0:p1].contiguous(),
                               w0=st.W.w0[p0:p1].contiguous())
     if st.b is not None:
-        raise NotImplementedError("a low-rank background takes no mesh")
+        t0, t1 = mesh.frames(st.f.shape[1])
+        kw.update(b=st.b[:, h0:h1].contiguous(),
+                  f=st.f[:, t0:t1].contiguous())
     return st.replace(A=st.A[:, h0:h1].contiguous(),
                       b0=st.b0[h0:h1].contiguous(), **kw)
 
@@ -160,6 +163,9 @@ def gather_state(st: CNMFEState, mesh) -> CNMFEState:
     if st.W is not None:
         kw["W"] = RingWeights(w=mesh_mod.gather_image(st.W.w, mesh),
                               w0=mesh_mod.gather_image(st.W.w0, mesh))
+    if st.b is not None:
+        kw.update(b=mesh_mod.gather_footprints(st.b, mesh),
+                  f=mesh_mod.gather_traces(st.f, mesh))
     return st.replace(A=mesh_mod.gather_footprints(st.A, mesh),
                       b0=mesh_mod.gather_image(st.b0, mesh), **kw)
 

@@ -3,9 +3,11 @@ local ring model (1p), or the low-rank svd/nmf model (2p) (port of
 ``cnmf_e_tpu/models/background.py``; reference
 ``update_background_parallel.m``).
 
-``mesh``: the ring model on this rank's blocks (``ops/ring.py``); the
-state is this rank's blocks, and so is what each function returns. The
-local and the low-rank models take no mesh."""
+``mesh``: every model on this rank's blocks: the ring and the local
+models with halo rows from the patch neighbours (``ops/ring.py``), the
+low-rank ones with their products summed over the mesh
+(``ops/lowrank.py``). The state is this rank's blocks, and so is what
+each function returns."""
 
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from cnmf_e_tpu_torch.ops.filters import box_downsample, resize_linear
 from cnmf_e_tpu_torch.ops.ring import (_ssub_geometry, apply_ring,
                                        fit_ring_model, local_background,
                                        reconstruct_ring_background)
+from cnmf_e_tpu_torch.parallel import comm
 
 
 def _neuron_free(Y: torch.Tensor, state: CNMFEState) -> torch.Tensor:
@@ -30,23 +33,12 @@ def _neuron_free(Y: torch.Tensor, state: CNMFEState) -> torch.Tensor:
                 ).reshape(T, H, W)
 
 
-def check_mesh_options(params: CNMFEParams) -> None:
-    """Raise NotImplementedError naming a background model that takes no
-    mesh."""
-    if params.background.model != "ring":
-        raise NotImplementedError(
-            f"background.model = {params.background.model!r} takes no "
-            f"mesh; the ring model does")
-
-
 def update_background(Y: torch.Tensor, state: CNMFEState,
                       params: CNMFEParams,
                       sn_pix: Optional[torch.Tensor] = None,
                       mesh=None) -> CNMFEState:
     """Refit the background model given the current (A, C). Y: (T, H, W)."""
     bp = params.background
-    if mesh is not None:
-        check_mesh_options(params)
     if bp.model == "ring":
         weights, b0, _ = fit_ring_model(
             Y, state.masked_A(), state.masked_C(), radius=bp.ring_radius,
@@ -59,10 +51,10 @@ def update_background(Y: torch.Tensor, state: CNMFEState,
         # bias the ring weights (Sources2D.m:1717-1733, localBG)
         _, weights, b0 = local_background(
             _neuron_free(Y, state), radius=bp.ring_radius, sn=sn_pix,
-            ssub=bp.ssub, ridge_eps=bp.ridge_eps)
+            ssub=bp.ssub, ridge_eps=bp.ridge_eps, mesh=mesh)
         return state.replace(W=weights, b0=b0)
     b, f, b0 = fit_lowrank_model(Y, state.masked_A(), state.masked_C(),
-                                 rank=bp.rank, mode=bp.model)
+                                 rank=bp.rank, mode=bp.model, mesh=mesh)
     return state.replace(b=b, f=f, b0=b0)
 
 
@@ -70,8 +62,6 @@ def background_of(Y: torch.Tensor, state: CNMFEState,
                   params: CNMFEParams, mesh=None) -> torch.Tensor:
     """The current background estimate B (T, H, W)."""
     bp = params.background
-    if mesh is not None:
-        check_mesh_options(params)
     if bp.model in ("ring", "local") and state.W is None:
         return torch.broadcast_to(state.b0[None], Y.shape)
     if bp.model == "ring":
@@ -83,15 +73,16 @@ def background_of(Y: torch.Tensor, state: CNMFEState,
         # B = W (Ybg - mean(Ybg) + 1) + b0 (local_background.m:148-150)
         T, H, W = Y.shape
         Ybg = _neuron_free(Y, state)
-        Yc = Ybg - Ybg.mean(dim=0)[None] + 1.0
+        Yc = Ybg - comm.frame_mean(Ybg, 0, mesh)[None] + 1.0
         del Ybg
-        Hs, Ws, radius_s = _ssub_geometry(H, W, bp.ring_radius, bp.ssub)
+        Hf = H if mesh is None else H * mesh.n_patch
+        Hs, Ws, radius_s = _ssub_geometry(Hf, W, bp.ring_radius, bp.ssub)
         if bp.ssub > 1:
             Yc = box_downsample(Yc, ssub=bp.ssub)
         Yest = apply_ring(state.W, Yc, Hs, Ws, radius_s,
-                          include_intercept=False)
+                          include_intercept=False, mesh=mesh)
         if bp.ssub > 1:
-            Yest = resize_linear(Yest, (H, W))
+            Yest = resize_linear(Yest, (H, W), mesh=mesh)
         return Yest + state.b0[None]
     if state.b is None:
         return torch.broadcast_to(state.b0[None], Y.shape)

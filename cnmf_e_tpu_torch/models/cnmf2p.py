@@ -37,6 +37,7 @@ from cnmf_e_tpu_torch.ops.nnls import fista_momenta, nnls_pixels
 from cnmf_e_tpu_torch.ops.noise import noise_psd_frames
 from cnmf_e_tpu_torch.ops.oasis import deconvolve
 from cnmf_e_tpu_torch.ops.stats import median_mid
+from cnmf_e_tpu_torch.parallel import comm
 from cnmf_e_tpu_torch.utils.profiling import timed
 
 SEARCH_RADIUS = 2       # dilation of a footprint into its search locations
@@ -186,22 +187,25 @@ def greedy_roi(Y: torch.Tensor, K: int, gSig: float = 5.0,
 
 def lasso_noise_constrained(C: torch.Tensor, Y: torch.Tensor,
                             sn: torch.Tensor, mask: Optional[torch.Tensor],
-                            n_bisect: int = 12, n_fista: int = 60
-                            ) -> torch.Tensor:
+                            n_bisect: int = 12, n_fista: int = 60,
+                            mesh=None) -> torch.Tensor:
     """Per-pixel nonnegative lasso: min ||a||_1 s.t. ||y - C^T a||^2 <=
     sn^2 T. C: (K, T) regressors; Y: (d, T); sn: (d,); mask: optional
     (d, K) support. Every pixel at once: a bisection on each pixel's
     lambda (the RSS grows with lambda) around ``n_fista`` FISTA steps of
-    min 1/2 ||y - C^T a||^2 + lam ||a||_1, a >= 0."""
-    T = C.shape[1]
-    G = C @ C.T                                        # (K, K)
-    B = Y @ C.T                                        # (d, K)
+    min 1/2 ||y - C^T a||^2 + lam ||a||_1, a >= 0. ``mesh``: C and Y are
+    this rank's frames (Y and sn its pixels); C C^T, Y C^T and ||y||^2
+    are summed over 'frame', the budget takes the whole T, and the rank
+    solves its pixels."""
+    T = C.shape[1] * (1 if mesh is None else mesh.n_frame)
+    G = comm.psum(C @ C.T, mesh, "frame")              # (K, K)
+    B = comm.psum(Y @ C.T, mesh, "frame")              # (d, K)
     if mask is not None:
         B = torch.where(mask, B, 0.0)
     step = 1.0 / torch.clamp(G.abs().sum(dim=-1).amax(), min=1e-12)
     budget = sn * sn * T
     momenta = fista_momenta(n_fista)
-    ynorm = (Y * Y).sum(dim=-1)
+    ynorm = comm.psum((Y * Y).sum(dim=-1), mesh, "frame")
 
     def fista(lam):
         x = torch.zeros_like(B)

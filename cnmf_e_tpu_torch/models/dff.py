@@ -9,6 +9,11 @@ F0, and divide the traces.
 percentile's (K, T, window) windows and a long session's (K, T) baseline
 both pass, so the quantiles here sort and interpolate themselves, with the
 ``"linear"`` rule of ``jnp.quantile``.
+
+``mesh``: :func:`extract_dff` on this rank's blocks: the
+footprint-projected background is summed over 'patch', F0 is taken on
+whole traces (K / n_patch of them a patch rank,
+``comm.traces_to_neurons``) and goes back to the rank's frames.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch.nn.functional as F
 from cnmf_e_tpu_torch.config import CNMFEParams
 from cnmf_e_tpu_torch.models.background import background_of
 from cnmf_e_tpu_torch.models.state import CNMFEState
+from cnmf_e_tpu_torch.parallel import comm
 
 # elements of sorted windows held at once by running_percentile (with the
 # sort's int64 indices, 12 bytes each: 384 MiB)
@@ -60,10 +66,19 @@ def running_percentile(x: torch.Tensor, window: int, q: float
     return out.reshape(shape)
 
 
-def _normalized_footprints(state: CNMFEState) -> torch.Tensor:
+def _normalized_footprints(state: CNMFEState, mesh=None) -> torch.Tensor:
     A = state.masked_A().reshape(state.K_max, -1)
-    norm = (A * A).sum(dim=1)
+    norm = comm.psum((A * A).sum(dim=1), mesh, "patch")
     return A / torch.clamp(norm, min=1e-12)[:, None]
+
+
+def _baseline(Ybg: torch.Tensor, window: Optional[int],
+              prctile: float) -> torch.Tensor:
+    """F0 of whole traces: the whole-session percentile, or the running
+    one."""
+    if window is None or window >= Ybg.shape[-1]:
+        return quantile(Ybg, prctile / 100.0)
+    return running_percentile(Ybg, window, prctile)
 
 
 def _divide(state: CNMFEState, Ybg: torch.Tensor, window: Optional[int],
@@ -72,19 +87,25 @@ def _divide(state: CNMFEState, Ybg: torch.Tensor, window: Optional[int],
     """F0 over every slot (whole-session or running percentile, unless
     given), then C / F0 and C_raw / F0 with inactive rows zero."""
     if F0 is None:
-        if window is None or window >= Ybg.shape[-1]:
-            F0 = quantile(Ybg, prctile / 100.0)
-        else:
-            F0 = running_percentile(Ybg, window, prctile)
+        F0 = _baseline(Ybg, window, prctile)
     F0 = torch.clamp(F0, min=1e-12)
     act = state.active[:, None]
     return (torch.where(act, state.C / F0, 0.0),
             torch.where(act, state.C_raw / F0, 0.0), F0)
 
 
+def _mode_baseline(Ybg: torch.Tensor) -> torch.Tensor:
+    """Per trace, the mode of its distribution by the Botev diffusion KDE
+    (``ops/kde.py``, on the host), as a (K, 1) column."""
+    from cnmf_e_tpu_torch.ops.kde import mode_baseline
+    return torch.tensor([[mode_baseline(row)]
+                         for row in Ybg.cpu().numpy()],
+                        dtype=Ybg.dtype, device=Ybg.device)
+
+
 def extract_dff(Y: torch.Tensor, state: CNMFEState, params: CNMFEParams,
                 window: Optional[int] = None, prctile: float = 50.0,
-                baseline: str = "percentile"
+                baseline: str = "percentile", mesh=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (C_df, C_raw_df, F0). Y: (T, H, W) raw movie on the state's
     device.
@@ -93,17 +114,23 @@ def extract_dff(Y: torch.Tensor, state: CNMFEState, params: CNMFEParams,
     (whole-session if ``window`` is None, else a running percentile).
     ``baseline="mode"`` instead takes the mode of the fluorescence
     distribution by the Botev diffusion KDE, the reference
-    ``extract_DF_F.m`` path (``ops/kde.py``, on the host)."""
+    ``extract_DF_F.m`` path (``ops/kde.py``, on the host).
+
+    ``mesh``: Y and the state are this rank's blocks, and C_df, C_raw_df
+    and a running F0 its frames (a whole-session F0 is (K, 1) on every
+    rank)."""
     T = Y.shape[0]
-    B = background_of(Y, state, params)
-    Ybg = _normalized_footprints(state) @ B.reshape(T, -1).T     # (K, T)
-    F0 = None
-    if baseline == "mode":
-        from cnmf_e_tpu_torch.ops.kde import mode_baseline
-        F0 = torch.tensor([[mode_baseline(row)]
-                           for row in Ybg.cpu().numpy()],
-                          dtype=Ybg.dtype, device=Ybg.device)
-    return _divide(state, Ybg, window, prctile, F0)
+    B = background_of(Y, state, params, mesh=mesh)
+    Ybg = comm.psum(_normalized_footprints(state, mesh)
+                    @ B.reshape(T, -1).T, mesh, "patch")         # (K, T)
+    Ybg = comm.traces_to_neurons(Ybg, mesh)
+    F0 = (_mode_baseline(Ybg) if baseline == "mode"
+          else _baseline(Ybg, window, prctile))
+    if mesh is not None:
+        F0 = (comm.all_gather_cat(F0, 0, mesh.patch_group)
+              if F0.shape[-1] == 1 else
+              comm.traces_to_frames(F0, F0.shape[-1], mesh))
+    return _divide(state, None, window, prctile, F0)
 
 
 def extract_dff_batches(blocks, batch_states, final_state: CNMFEState,

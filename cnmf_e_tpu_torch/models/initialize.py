@@ -302,13 +302,15 @@ def _extract_mesh(HY, Y_work, rows, cols, gSiz, mesh, **kw
 
 def _deconvolve_split(c_raw, deconv, sn, mesh):
     """``deconvolve`` of whole traces (N, T), N split evenly over 'patch'
-    under a mesh and the results gathered: (c, s, g)."""
+    under a mesh and the results gathered: (c, s, g). ``sn``: the traces'
+    noise, or None (``deconvolve`` estimates it)."""
     if mesh is None:
         d = deconvolve(c_raw, deconv, sn=sn)
         return d.c, d.s, d.g
     N, T = c_raw.shape
     n0, n1 = (N * mesh.p // mesh.n_patch, N * (mesh.p + 1) // mesh.n_patch)
-    d = deconvolve(c_raw[n0:n1], deconv, sn=sn[n0:n1])
+    d = deconvolve(c_raw[n0:n1], deconv,
+                   sn=None if sn is None else sn[n0:n1])
     sizes = [N * (q + 1) // mesh.n_patch - N * q // mesh.n_patch
              for q in range(mesh.n_patch)]
     x = comm.all_gather_cat(torch.cat([d.c, d.s, d.g], dim=1), 0,
@@ -380,19 +382,63 @@ def _init_round(state: CNMFEState, HY, Y_work, Ysig, searched, n_found,
             n_found + take.long().sum())
 
 
-def check_mesh_options(params: CNMFEParams, mesh) -> None:
-    """Raise NotImplementedError naming an init option that takes no mesh,
-    and a ValueError when ``seeds_per_round`` does not divide over
-    'patch'."""
+def check_mesh_options(params: CNMFEParams, mesh, block_shape) -> None:
+    """Raise a ValueError when ``seeds_per_round`` does not divide over
+    'patch', or when this rank's block (T/frame, H/patch, W) does not
+    pool alone: its frames not a multiple of ``init.tsub``, its rows not
+    a multiple of ``init.ssub``."""
     ip = params.init
-    for name in ("ssub", "tsub", "nk"):
-        if getattr(ip, name) > 1:
-            raise NotImplementedError(f"init.{name} = {getattr(ip, name)} "
-                                      f"takes no mesh")
     if ip.seeds_per_round % mesh.n_patch:
         raise ValueError(f"seeds_per_round = {ip.seeds_per_round} is not "
                          f"divisible by the {mesh.n_patch} ranks of the "
                          f"'patch' axis")
+    Tl, Hl = block_shape[:2]
+    if Tl % ip.tsub:
+        raise ValueError(f"T / n_frame = {Tl} is not a multiple of "
+                         f"init.tsub = {ip.tsub}")
+    if Hl % ip.ssub:
+        raise ValueError(f"H / n_patch = {Hl} is not a multiple of "
+                         f"init.ssub = {ip.ssub}")
+
+
+def _init_downsampled(Y: torch.Tensor, params: CNMFEParams, K_max: int,
+                      min_corr, min_pnr, verbose: bool, mesh
+                      ) -> Tuple[CNMFEState, dict]:
+    """The init on the box-downsampled movie, its footprints and raw
+    traces resized back linearly and its traces refined by one
+    deconvolution at the full rate (``greedyROI_endoscope.m:464-487``).
+    ``mesh``: Y is this rank's block, whose frames and rows pool alone;
+    the footprints resize on the slab with a halo row
+    (``resize_linear(mesh=)``), the traces along time whole (gathered
+    over 'frame'), and the deconvolution splits them over 'patch'."""
+    ip = params.init
+    Tl, Hl, W = Y.shape
+    T = Tl * (1 if mesh is None else mesh.n_frame)
+    ip_ds = dataclasses.replace(
+        ip, ssub=1, tsub=1, gSig=max(ip.gSig / ip.ssub, 0.0),
+        gSiz=max(int(ip.gSiz // ip.ssub), 3))
+    st_ds, info = initialize_greedy(
+        box_downsample(Y.to(torch.float32), ssub=ip.ssub, tsub=ip.tsub),
+        params.replace(init=ip_ds), K_max=K_max, min_corr=min_corr,
+        min_pnr=min_pnr, verbose=verbose, mesh=mesh)
+    C_ds = st_ds.C_raw
+    if mesh is not None:
+        C_ds = comm.all_gather_cat(C_ds, 1, mesh.frame_group)
+    C_full = resize_linear_last(C_ds, T)                  # whole traces
+    st = empty_state(st_ds.K_max, Hl, W, Tl, p=st_ds.g.shape[1],
+                     device=Y.device).replace(
+        A=resize_linear(st_ds.A, (Hl, W), mesh=mesh),
+        C=_my_frames(torch.clamp(C_full, min=0.0), Tl, mesh),
+        C_raw=_my_frames(C_full, Tl, mesh).contiguous(),
+        active=st_ds.active, g=st_ds.g, neuron_sn=st_ds.neuron_sn)
+    # refine the traces at the full rate with one deconvolution pass
+    if ip.deconv_at_init and params.temporal.deconv.enabled:
+        c, s, _ = _deconvolve_split(C_full, params.temporal.deconv, None,
+                                    mesh)
+        act = st.active[:, None]
+        st = st.replace(C=torch.where(act, _my_frames(c, Tl, mesh), 0.0),
+                        S=torch.where(act, _my_frames(s, Tl, mesh), 0.0))
+    return st, info
 
 
 def initialize_greedy(Y: torch.Tensor, params: CNMFEParams,
@@ -414,37 +460,21 @@ def initialize_greedy(Y: torch.Tensor, params: CNMFEParams,
     ``mesh``: Y and ``state`` are this rank's blocks (the module
     docstring), ``seeds_per_round`` divides over 'patch', and the state
     returned is this rank's blocks; the report, ``n_found`` and the Cn /
-    PNR maps (whole) are the same on every rank. ``init.ssub``,
-    ``init.tsub`` and ``init.nk`` above 1 take no mesh."""
+    PNR maps (whole) are the same on every rank. With ``init.ssub`` or
+    ``init.tsub`` the rank's frames and rows pool alone (a multiple of
+    each), and ``init.nk`` detrends the rank's frames with the basis
+    products summed over 'frame' (``ops/detrend.py``)."""
     ip = params.init
     T, H, W = Y.shape
     dev = Y.device
     K_max = K_max or ip.max_neurons
     Tl, Hl = T, H
     if mesh is not None:
-        check_mesh_options(params, mesh)
+        check_mesh_options(params, mesh, Y.shape)
         T, H = T * mesh.n_frame, H * mesh.n_patch
     if (ip.ssub > 1 or ip.tsub > 1) and state is None:
-        ip_ds = dataclasses.replace(
-            ip, ssub=1, tsub=1, gSig=max(ip.gSig / ip.ssub, 0.0),
-            gSiz=max(int(ip.gSiz // ip.ssub), 3))
-        st_ds, info = initialize_greedy(
-            box_downsample(Y.to(torch.float32), ssub=ip.ssub, tsub=ip.tsub),
-            params.replace(init=ip_ds), K_max=K_max, min_corr=min_corr,
-            min_pnr=min_pnr, verbose=verbose)
-        C_full = resize_linear_last(st_ds.C_raw, T)
-        st = empty_state(st_ds.K_max, H, W, T, p=st_ds.g.shape[1],
-                         device=dev).replace(
-            A=resize_linear(st_ds.A, (H, W)), C=torch.clamp(C_full, min=0.0),
-            C_raw=C_full, active=st_ds.active, g=st_ds.g,
-            neuron_sn=st_ds.neuron_sn)
-        # refine the traces at the full rate with one deconvolution pass
-        if ip.deconv_at_init and params.temporal.deconv.enabled:
-            dres = deconvolve(st.C_raw, params.temporal.deconv)
-            act = st.active[:, None]
-            st = st.replace(C=torch.where(act, dres.c, 0.0),
-                            S=torch.where(act, dres.s, 0.0))
-        return st, info
+        return _init_downsampled(Y, params, K_max, min_corr, min_pnr,
+                                 verbose, mesh)
     gSiz = int(ip.gSiz)
     if min_corr is None:
         min_corr = ip.min_corr
@@ -458,8 +488,8 @@ def initialize_greedy(Y: torch.Tensor, params: CNMFEParams,
         K_max = state.K_max
     Y_work = Y.to(torch.float32)
     if ip.nk > 1:
-        Y_work = detrend(Y_work.permute(1, 2, 0), ip.nk,
-                         ip.detrend_method).permute(2, 0, 1).contiguous()
+        Y_work = detrend(Y_work.permute(1, 2, 0), ip.nk, ip.detrend_method,
+                         mesh).permute(2, 0, 1).contiguous()
     HY, Ysig = _init_prolog(Y_work, ip.gSig, ip.center_psf, mesh)
 
     searched = torch.zeros((H, W), dtype=torch.bool, device=dev)

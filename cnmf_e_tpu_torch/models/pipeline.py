@@ -12,9 +12,9 @@ rank passes its (T/frame, H/patch, W) block of the movie
 (``mesh.shard_movie``), the movie and the footprints stay sharded through
 every stage, each stage sums over the mesh what it needs (the modules'
 docstrings), and every rank returns the same full state, gathered at the
-end. The path is the 1p default's: the ring background, HALS on dilated
-search locations, any deconvolution family; the other options raise
-NotImplementedError under a mesh.
+end. Every option of :class:`~cnmf_e_tpu_torch.config.CNMFEParams` runs
+so, and every method of :class:`CNMFE` takes the rank's block of a movie
+and returns the rank's block (``compute_rss`` the whole mesh's sum).
 """
 
 from __future__ import annotations
@@ -26,13 +26,12 @@ import torch
 
 from cnmf_e_tpu_torch.checkpoint import restore_state
 from cnmf_e_tpu_torch.config import CNMFEParams
-from cnmf_e_tpu_torch.convert import gather_state
+from cnmf_e_tpu_torch.convert import gather_state, state_blocks
 from cnmf_e_tpu_torch.models.background import (background_of,
                                                 residual_movie,
                                                 subtract_background,
                                                 update_background)
-from cnmf_e_tpu_torch.models import (background, initialize, spatial,
-                                     temporal)
+from cnmf_e_tpu_torch.models import initialize
 from cnmf_e_tpu_torch.models.dff import extract_dff
 from cnmf_e_tpu_torch.models.initialize import initialize_greedy
 from cnmf_e_tpu_torch.models.merge import merge_neurons, merge_neurons_seq
@@ -46,27 +45,28 @@ from cnmf_e_tpu_torch.parallel.mesh import check_divisible
 from cnmf_e_tpu_torch.utils.profiling import timed
 
 
-def _check_mesh(params: CNMFEParams, Y: torch.Tensor, mesh) -> None:
-    """The mesh path's guards, before any stage runs: each stage's
-    NotImplementedError for an option off the path, and a ValueError
-    naming a dimension that does not divide (or in which the ranks'
-    blocks differ)."""
-    for check in (background.check_mesh_options,
-                  spatial.check_mesh_options, temporal.check_mesh_options):
-        check(params)
-    initialize.check_mesh_options(params, mesh)
-    shape = torch.tensor(Y.shape, dtype=torch.int64, device=Y.device)
+def _check_mesh(params: CNMFEParams, Y: torch.Tensor, mesh,
+                run_log) -> bool:
+    """The mesh path's guards, before any stage runs: a ValueError naming
+    a dimension that does not divide (or in which the ranks' blocks
+    differ). Returns whether any rank was given a ``run_log``, so that
+    every rank gathers the snapshots alike."""
+    shape = torch.tensor(tuple(Y.shape) + (run_log is not None,),
+                         dtype=torch.int64, device=Y.device)
     hi = comm.all_reduce_max(shape.clone(), None)      # the whole mesh
     lo = comm.all_reduce_min(shape.clone(), None)
     for i, name in enumerate(("T", "H", "W")):
         if int(hi[i]) != int(lo[i]):
             raise ValueError(f"the ranks' blocks differ in {name}: "
                              f"{int(lo[i])} to {int(hi[i])}")
+    # after the shapes: every rank raises alike from here on
+    initialize.check_mesh_options(params, mesh, Y.shape)
     check_divisible(mesh, K=params.init.max_neurons)
     ssub = params.background.ssub
     if ssub > 1 and Y.shape[1] % ssub:
         raise ValueError(f"H / n_patch = {Y.shape[1]} is not a multiple "
                          f"of background.ssub = {ssub}")
+    return bool(hi[3])
 
 
 class CNMFE:
@@ -95,9 +95,13 @@ class CNMFE:
     def _movie(self, Y) -> torch.Tensor:
         return torch.as_tensor(Y, device=self.device).to(torch.float32)
 
-    def _one_process(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(f"CNMFE.{what} takes no mesh")
+    def _fitted(self) -> CNMFEState:
+        """The fitted state, under a mesh this rank's blocks of it."""
+        if self.state is None:
+            raise RuntimeError("run fit() first")
+        if self.mesh is None:
+            return self.state
+        return state_blocks(self.state, self.mesh)
 
     def estimate_pixel_noise(self, Y: torch.Tensor) -> torch.Tensor:
         """Per-pixel noise sigma over the first ``noise_frame_cap`` frames
@@ -121,23 +125,22 @@ class CNMFE:
         closed by a device synchronisation.
 
         Under a mesh every rank calls ``fit`` with its block of Y and the
-        same arguments, and gets the same full state; ``run_log`` and
-        ``resume_from`` take no mesh."""
+        same arguments, and gets the same full state. ``run_log`` may be
+        given on rank 0 alone: every rank gathers the snapshots' states
+        alike, and only rank 0 writes. ``resume_from``: every rank
+        restores the whole snapshot and keeps its blocks."""
         p = self.params
         mesh = self.mesh
-        if mesh is not None:
-            for name, v in (("run_log", run_log),
-                            ("resume_from", resume_from)):
-                if v is not None:
-                    raise NotImplementedError(f"CNMFE.fit({name}=...) takes "
-                                              f"no mesh")
         with timed(timer, "scrub"):
             Y = self._movie(Y)
             # rank-local under a mesh: no collective depends on it
             if not bool(torch.isfinite(Y.sum())):
                 Y = torch.nan_to_num(Y)
+        snapshots = run_log is not None
         if mesh is not None:
-            _check_mesh(p, Y, mesh)
+            snapshots = _check_mesh(p, Y, mesh, run_log)
+            if mesh.rank != 0:
+                run_log = None
         t0 = time.time()
 
         def log(msg):
@@ -150,14 +153,25 @@ class CNMFE:
             if run_log is not None:
                 run_log.log(msg)
 
+        def snapshot(stage, state):
+            # gather_state is a collective: every rank takes this branch
+            if snapshots and mesh is not None:
+                state = gather_state(state, mesh)
+            if run_log is not None:
+                run_log.snapshot(stage, state)
+
         with timed(timer, "noise"):
             sn_pix = self.estimate_pixel_noise(Y)
         log("pixel noise estimated")
 
         if resume_from is not None:
             T, H, W = Y.shape
+            if mesh is not None:
+                T, H = T * mesh.n_frame, H * mesh.n_patch
             state = restore_state(resume_from, p.init.max_neurons, H, W, T,
                                   device=self.device)
+            if mesh is not None:
+                state = state_blocks(state, mesh)
             log(lambda: f"resumed {int(state.n_active())} neurons from "
                 f"{resume_from}")
         else:
@@ -168,8 +182,7 @@ class CNMFE:
             log(lambda: f"init: {int(state.n_active())} neurons")
             with timed(timer, "merge"):
                 state, _ = merge_neurons(state, p, "dist_corr", mesh=mesh)
-            if run_log is not None:
-                run_log.snapshot("init", state)
+            snapshot("init", state)
             with timed(timer, "background"):
                 state = update_background(Y, state, p, sn_pix=sn_pix,
                                           mesh=mesh)
@@ -248,40 +261,39 @@ class CNMFE:
                 state = gather_state(state, mesh)
         log(lambda: f"done: {int(state.n_active())} neurons")
         if run_log is not None:
-            run_log.snapshot("final", state)
+            run_log.snapshot("final", state)     # gathered above
         self.state = state
         return state
 
     def dff(self, Y, window: Optional[int] = None, prctile: float = 50.0):
         """(C_df, C_raw_df, F0) of the fitted state on the movie Y
-        (:func:`cnmf_e_tpu_torch.models.dff.extract_dff`)."""
-        self._one_process("dff")
-        if self.state is None:
-            raise RuntimeError("run fit() first")
-        return extract_dff(self._movie(Y), self.state, self.params,
-                           window=window, prctile=prctile)
+        (:func:`cnmf_e_tpu_torch.models.dff.extract_dff`); under a mesh Y
+        is this rank's block, and the traces returned are its frames."""
+        return extract_dff(self._movie(Y), self._fitted(), self.params,
+                           window=window, prctile=prctile, mesh=self.mesh)
 
     def background(self, Y) -> torch.Tensor:
-        self._one_process("background")
-        if self.state is None:
-            raise RuntimeError("run fit() first")
-        return background_of(self._movie(Y), self.state, self.params)
+        """The background B of the movie Y (this rank's block of both
+        under a mesh)."""
+        return background_of(self._movie(Y), self._fitted(), self.params,
+                             mesh=self.mesh)
 
     def reconstruction(self, Y) -> torch.Tensor:
-        """Denoised movie A C + B."""
-        self._one_process("reconstruction")
-        st = self.state
+        """Denoised movie A C + B (this rank's block under a mesh)."""
+        st = self._fitted()
         B = self.background(Y)
         A = st.masked_A()
         AC = st.masked_C().T @ A.reshape(A.shape[0], -1)
         return AC.reshape(B.shape) + B
 
     def residual(self, Y) -> torch.Tensor:
-        self._one_process("residual")
         return self._movie(Y) - self.reconstruction(Y)
 
     def compute_rss(self, Y) -> float:
-        """||Y - AC - B||_F^2 (``Sources2D.m:1358-1510``)."""
-        self._one_process("compute_rss")
+        """||Y - AC - B||_F^2 (``Sources2D.m:1358-1510``); under a mesh
+        the sum over every rank's block."""
         r = self.residual(Y)
-        return float((r * r).sum())
+        rss = (r * r).sum()
+        if self.mesh is not None:
+            rss = comm.all_reduce_sum(rss.reshape(1), None)[0]
+        return float(rss)

@@ -6,7 +6,11 @@ neuron ordering (port of ``cnmf_e_tpu/models/qc.py``; reference
 ``mesh``: :func:`tag_neurons` and :func:`remove_false_positives` on
 this rank's blocks: pixel counts summed over 'patch', the trace
 statistics on whole traces (K / n_patch a patch rank, the tags gathered
-over 'patch'), so every rank holds the same tags and active mask."""
+over 'patch'), so every rank holds the same tags and active mask. With
+``active_pixels`` (the rank's rows) the footprints and the mask are
+gathered over 'patch' and every rank runs the host's float64
+``classify_components`` on the whole field of view, as one process
+does."""
 
 from __future__ import annotations
 
@@ -57,17 +61,20 @@ def remove_false_positives(state: CNMFEState, params: CNMFEParams,
     with it (and ``qc.classify_cl_thr > 0``) components keeping less than
     ``cl_thr`` of their l2 norm on the mask go too, the
     ``classify_components`` criterion (``classify_components.m:31-38``),
-    decided on the host in float64."""
-    if mesh is not None and active_pixels is not None:
-        raise NotImplementedError("remove_false_positives(active_pixels=) "
-                                  "takes no mesh")
+    decided on the host in float64. ``mesh``: ``active_pixels`` is this
+    rank's rows of the mask."""
     state = tag_neurons(state, params, mesh)
     keep = state.active & (state.tags == 0)
     if active_pixels is not None and params.qc.classify_cl_thr > 0:
         K = state.K_max
+        A, act = state.A, active_pixels
+        if mesh is not None:
+            A = comm.all_gather_cat(A, 1, mesh.patch_group)
+            act = comm.all_gather_cat(torch.as_tensor(
+                np.asarray(_host(act), np.uint8), device=A.device), 0,
+                mesh.patch_group)
         keep_cl = classify_components(
-            _host(state.A).reshape(K, -1).T,
-            _host(active_pixels).reshape(-1),
+            _host(A).reshape(K, -1).T, _host(act).reshape(-1),
             cl_thr=params.qc.classify_cl_thr)
         keep = keep & torch.as_tensor(keep_cl, device=keep.device)
     return _apply_keep(state, keep)

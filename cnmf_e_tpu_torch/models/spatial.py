@@ -4,12 +4,15 @@
 ``HALS_spatial_thresh.m``, per-pixel NNLS, or the noise-constrained
 nonnegative lasso in the role of ``lars_regression_noise.m``.
 
-``mesh``: HALS with the dilated search locations on this rank's blocks:
-the masks dilate across slabs (``search_locations_dilate(mesh=)``), the
-HALS Grams are summed over 'frame' (``ops/hals.py``), and the shape
-priors run on the footprints gathered over 'patch'
-(``ops/morphology.py::on_gathered``). Other algorithms and search
-methods take no mesh."""
+``mesh``: every algorithm and search method on this rank's blocks: the
+dilated masks grow across slabs (``search_locations_dilate(mesh=)``),
+the ellipses take their moments summed over 'patch'; HALS sums its
+Grams over 'frame' (``ops/hals.py``), NNLS and the lasso sum C C^T,
+Y C^T and ||y||^2 over 'frame' and solve the rank's pixels, and the
+3-sigma gate of ``hals_thresh`` takes C's mean and norm (and the
+fallback noise floor's variance) over 'frame'. The shape priors run on
+the footprints gathered over 'patch'
+(``ops/morphology.py::on_gathered``)."""
 
 from __future__ import annotations
 
@@ -26,18 +29,17 @@ from cnmf_e_tpu_torch.ops.morphology import (circular_constraint,
                                              search_locations_dilate,
                                              search_locations_ellipse)
 from cnmf_e_tpu_torch.ops.nnls import nnls_pixels
+from cnmf_e_tpu_torch.parallel import comm
 
 
-def check_mesh_options(params: CNMFEParams) -> None:
-    """Raise NotImplementedError naming the spatial option that takes no
-    mesh."""
-    sp = params.spatial
-    if sp.algorithm != "hals":
-        raise NotImplementedError(f"spatial.algorithm = {sp.algorithm!r} "
-                                  f"takes no mesh")
-    if sp.search_method == "ellipse":
-        raise NotImplementedError("spatial.search_method = 'ellipse' takes "
-                                  "no mesh")
+def _frame_std(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The standard deviation (no correction) along the last axis, sharded
+    over 'frame': its mean and the squares about it summed over
+    'frame'. Without a mesh, or on one 'frame' rank, ``std`` itself."""
+    if mesh is None or mesh.n_frame == 1:
+        return x.std(dim=-1, correction=0)
+    mu = comm.frame_mean(x, -1, mesh, keepdim=True)
+    return torch.sqrt(comm.frame_mean((x - mu) ** 2, -1, mesh))
 
 
 def update_spatial(Ysignal: torch.Tensor, state: CNMFEState,
@@ -51,8 +53,6 @@ def update_spatial(Ysignal: torch.Tensor, state: CNMFEState,
     deviation stands in, which overestimates the floor while signal is
     unmodelled."""
     sp = params.spatial
-    if mesh is not None:
-        check_mesh_options(params)
     T, H, W = Ysignal.shape
     K = state.K_max
     A = state.masked_A()
@@ -61,7 +61,7 @@ def update_spatial(Ysignal: torch.Tensor, state: CNMFEState,
         masks = search_locations_dilate(A, radius=sp.dilate_radius,
                                         mesh=mesh)
     elif sp.search_method == "ellipse":
-        masks = search_locations_ellipse(A)
+        masks = search_locations_ellipse(A, mesh=mesh)
     else:
         masks = torch.ones_like(A, dtype=torch.bool)
     masks = masks & state.active[:, None, None]
@@ -73,19 +73,20 @@ def update_spatial(Ysignal: torch.Tensor, state: CNMFEState,
         if sp.algorithm == "hals_thresh":
             # zero a_dk where a_dk ||C_k - mean|| < 3 sn_d
             # (HALS_spatial_thresh.m:37,51)
-            Cc = C - C.mean(dim=-1, keepdim=True)
-            cnorm = torch.sqrt((Cc * Cc).sum(dim=-1))
+            Cc = C - comm.frame_mean(C, -1, mesh, keepdim=True)
+            cnorm = torch.sqrt(comm.psum((Cc * Cc).sum(dim=-1), mesh,
+                                         "frame"))
             sn_d = (sn_pix.reshape(-1, 1) if sn_pix is not None
-                    else (Yd - Ad @ C).std(dim=-1, correction=0,
-                                           keepdim=True))
+                    else _frame_std(Yd - Ad @ C, mesh)[:, None])
             Ad = torch.where(Ad * cnorm[None, :] > 3.0 * sn_d, Ad, 0.0)
     elif sp.algorithm == "nnls":
-        Ad = nnls_pixels(C, Yd, A0=Ad, mask=Md, n_iter=20 * sp.n_iter)
+        Ad = nnls_pixels(C, Yd, A0=Ad, mask=Md, n_iter=20 * sp.n_iter,
+                         mesh=mesh)
     elif sp.algorithm == "lars":
         from cnmf_e_tpu_torch.models.cnmf2p import lasso_noise_constrained
         sn_d = (sn_pix.reshape(-1) if sn_pix is not None
-                else (Yd - Ad @ C).std(dim=-1, correction=0))
-        Ad = lasso_noise_constrained(C, Yd, sn_d, Md)
+                else _frame_std(Yd - Ad @ C, mesh))
+        Ad = lasso_noise_constrained(C, Yd, sn_d, Md, mesh=mesh)
     else:
         raise ValueError(f"unknown spatial algorithm {sp.algorithm!r}")
     A_new = post_process_spatial(Ad.T.reshape(K, H, W), params, mesh)

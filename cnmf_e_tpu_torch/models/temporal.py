@@ -7,7 +7,8 @@
 'patch' (``ops/hals.py``); the baseline, the noise and the deconvolution
 run on whole traces, K / n_patch of them a patch rank
 (``comm.traces_to_neurons``), as in the step's mesh branch. Every
-deconvolution family runs so; ``decorrelate`` takes no mesh."""
+deconvolution family runs so, and ``decorrelate`` on the same whole
+traces with the spikes of all K gathered over 'patch'."""
 
 from __future__ import annotations
 
@@ -23,19 +24,10 @@ from cnmf_e_tpu_torch.ops.stats import submedian_mean
 from cnmf_e_tpu_torch.parallel import comm
 
 
-def check_mesh_options(params: CNMFEParams) -> None:
-    """Raise NotImplementedError naming the temporal option that takes no
-    mesh."""
-    if params.temporal.decorrelate:
-        raise NotImplementedError("temporal.decorrelate takes no mesh")
-
-
 def update_temporal(Ysignal: torch.Tensor, state: CNMFEState,
                     params: CNMFEParams, mesh=None) -> CNMFEState:
     """Update traces given footprints. Ysignal: (T, H, W) = Y - B."""
     tp = params.temporal
-    if mesh is not None:
-        check_mesh_options(params)
     T, H, W = Ysignal.shape
     K = state.K_max
     A = state.masked_A()
@@ -65,7 +57,7 @@ def update_temporal(Ysignal: torch.Tensor, state: CNMFEState,
         g_new = g_old
     if tp.decorrelate and tp.deconv.enabled:
         C_new = decorr_temporal(C_new, S_new, A, g_new, sn,
-                                gSiz=float(params.init.gSiz))
+                                gSiz=float(params.init.gSiz), mesh=mesh)
     act = active[:, None]
     T_all = C_raw.shape[1]
 

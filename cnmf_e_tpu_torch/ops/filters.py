@@ -79,8 +79,9 @@ def box_downsample(Y: torch.Tensor, ssub: int = 1,
     """Spatio-temporal box down-sampling of a (T, H, W) movie
     (``dsData.m:33-43``): a ragged spatial edge is edge-padded into the
     last bin; trailing frames short of a full ``tsub`` bin are dropped.
-    A mesh rank's slab pools alone when its rows are a multiple of
-    ``ssub`` (``CNMFE(mesh=...)`` requires it): no bin crosses slabs."""
+    A mesh rank's block pools alone when its rows are a multiple of
+    ``ssub`` and its frames of ``tsub`` (``CNMFE(mesh=...)`` requires
+    both, else a ValueError names them): no bin crosses blocks."""
     T, H, W = Y.shape
     if ssub > 1:
         Hs, Ws = -(-H // ssub), -(-W // ssub)

@@ -156,8 +156,8 @@ def search_locations_dilate(A: torch.Tensor, radius: int = 4,
 
 
 def search_locations_ellipse(A: torch.Tensor, dist: float = 3.0,
-                             min_size: float = 3.0, max_size: float = 8.0
-                             ) -> torch.Tensor:
+                             min_size: float = 3.0, max_size: float = 8.0,
+                             mesh=None) -> torch.Tensor:
     """'ellipse' search masks (``determine_search_location.m``'s
     default): per neuron, an ellipse centred at the footprint's centre of
     mass with axes along the principal axes of its pixel-coordinate
@@ -170,18 +170,29 @@ def search_locations_ellipse(A: torch.Tensor, dist: float = 3.0,
     the squared projections, so their signs do not matter, nor their
     rotation when the two eigenvalues are equal (the ellipse is then a
     disc). Unlike ``torch.linalg.eigh`` this runs the same elementwise
-    operations on the card and on the CPU, with no solver call."""
+    operations on the card and on the CPU, with no solver call.
+
+    ``mesh``: A is this rank's (K, H/patch, W) rows, y counts the whole
+    field of view's rows, the mass, the centre and the second moments
+    are summed over 'patch', and each rank builds its rows' masks."""
     K, H, W = A.shape
-    yy = torch.arange(H, dtype=A.dtype, device=A.device)[:, None]
+    y0 = 0 if mesh is None else mesh.p * H
+    yy = torch.arange(y0, y0 + H, dtype=A.dtype, device=A.device)[:, None]
     xx = torch.arange(W, dtype=A.dtype, device=A.device)[None, :]
-    mass = A.sum(dim=(1, 2)) + 1e-12
-    cy = (A * yy[None]).sum(dim=(1, 2)) / mass
-    cx = (A * xx[None]).sum(dim=(1, 2)) / mass
+    first = comm.psum(torch.stack([A.sum(dim=(1, 2)),
+                                   (A * yy[None]).sum(dim=(1, 2)),
+                                   (A * xx[None]).sum(dim=(1, 2))]),
+                      mesh, "patch")
+    mass = first[0] + 1e-12
+    cy = first[1] / mass
+    cx = first[2] / mass
     dy = yy[None] - cy[:, None, None]
     dx = xx[None] - cx[:, None, None]
-    syy = (A * dy * dy).sum(dim=(1, 2)) / mass
-    sxx = (A * dx * dx).sum(dim=(1, 2)) / mass
-    sxy = (A * dx * dy).sum(dim=(1, 2)) / mass
+    second = comm.psum(torch.stack([(A * dy * dy).sum(dim=(1, 2)),
+                                    (A * dx * dx).sum(dim=(1, 2)),
+                                    (A * dx * dy).sum(dim=(1, 2))]),
+                       mesh, "patch") / mass
+    syy, sxx, sxy = second[0], second[1], second[2]
     half = (syy - sxx) / 2
     rad = torch.sqrt(half * half + sxy * sxy)
     mid = (syy + sxx) / 2

@@ -16,6 +16,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from cnmf_e_tpu_torch.parallel import comm
+
 
 def fista_momenta(n_iter: int) -> List[float]:
     """The momentum weights (t_k - 1) / t_{k+1} of ``n_iter`` FISTA steps
@@ -59,13 +61,15 @@ def nnls_fista(G: torch.Tensor, b: torch.Tensor,
 def nnls_pixels(C: torch.Tensor, Y: torch.Tensor,
                 A0: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None,
-                n_iter: int = 100) -> torch.Tensor:
+                n_iter: int = 100, mesh=None) -> torch.Tensor:
     """Per-pixel NNLS for the spatial update: A = argmin ||Y - A C||_F^2,
     A >= 0. C: (K, T); Y: (d, T); the optional search-location mask (d, K)
     freezes the coordinates outside it at zero. One Gram C C^T serves
-    every pixel."""
-    G = C @ C.T                                        # (K, K)
-    B = Y @ C.T                                        # (d, K)
+    every pixel. ``mesh``: C and Y are this rank's frames (and Y its
+    pixels); C C^T and Y C^T are summed over 'frame', and the rank solves
+    its pixels."""
+    G = comm.psum(C @ C.T, mesh, "frame")              # (K, K)
+    B = comm.psum(Y @ C.T, mesh, "frame")              # (d, K)
     if mask is not None:
         B = torch.where(mask, B, 0.0)
     step = 1.0 / torch.clamp(G.abs().sum(dim=-1).amax(), min=1e-12)

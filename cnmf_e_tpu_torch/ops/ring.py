@@ -10,9 +10,10 @@ the stencil kernel of :mod:`cnmf_e_tpu_torch.ops.ring_kernels`.
 ``mesh``: the movie and the weights are this rank's blocks (T/frame,
 H/patch, W) and (H/patch W, ...), on the ``ssub`` grid where there is
 one. Every ring apply takes the ring's reach in halo rows from the patch
-neighbours and runs K6 on the padded slab (:func:`apply_ring`); the fit
-gathers its strided frames over 'frame' and fits the rank's pixels from
-its slab and a halo (:func:`fit_ring_weights_mesh`).
+neighbours and runs K6 on the padded slab (:func:`apply_ring`); the ring
+fit (its strided frames) and the local fit (all frames, with the event
+mask) gather them over 'frame' and fit the rank's pixels from its slab
+and a halo (:func:`fit_ring_weights_mesh`).
 """
 
 from __future__ import annotations
@@ -174,25 +175,41 @@ def stride_grid(T: int, stride: int, mesh) -> Tuple[int, list]:
 
 def fit_ring_weights_mesh(Bf: torch.Tensor, H: int, W: int, radius: int,
                           mesh, grid_sizes: Optional[list] = None,
-                          ridge_eps: float = 1e-5) -> RingWeights:
+                          ridge_eps: float = 1e-5,
+                          mask: Optional[torch.Tensor] = None,
+                          **kw) -> RingWeights:
     """The ring weights of this rank's pixels from its rows and frames of
     the (centred, clamped, strided) residual ``Bf`` (T'/frame, H/patch,
     W) of an H-row field of view: the slab takes the ring's reach in halo
     rows from its patch neighbours, the frames of the other 'frame' ranks
     (``grid_sizes`` of them each, default equal), and fits its own rows
-    (:func:`fit_ring_weights` with ``rows`` and ``fov_rows``). Without a
-    mesh, the whole field of view's fit."""
+    (:func:`fit_ring_weights` with ``rows`` and ``fov_rows``). ``mask``:
+    this rank's block of the per-pixel sample weights, gathered over
+    'frame' as bytes (only the slab's own rows enter its normal
+    equations); ``kw``: :func:`fit_ring_weights`' ``intercept`` and
+    ``neighbor_cutoff``. Without a mesh, the whole field of view's fit.
+
+    Gathering the frames sums every pixel's normal equations over all T
+    in the one process's order; all-reducing each pixel's partial Grams
+    over 'frame' instead would move (R + 1) R floats a pixel, more than
+    its frames at the fits' sizes (PERF.md)."""
     if mesh is None:
-        return fit_ring_weights(Bf, H, W, radius, ridge_eps=ridge_eps)
+        return fit_ring_weights(Bf, H, W, radius, ridge_eps=ridge_eps,
+                                mask=mask, **kw)
     Hl = Bf.shape[1]
     h0 = mesh.p * Hl
     reach = int(np.abs(ring_offsets(radius)[:, 0]).max())
     Bp = comm.all_gather_cat(comm.halo_rows(Bf, reach, mesh), 0,
                              mesh.frame_group, grid_sizes)
+    if mask is not None:
+        mask = F.pad(comm.all_gather_cat(mask.to(torch.uint8), 0,
+                                         mesh.frame_group, grid_sizes),
+                     (0, 0, reach, reach))
     return fit_ring_weights(
-        Bp, Hl + 2 * reach, W, radius, ridge_eps=ridge_eps,
+        Bp, Hl + 2 * reach, W, radius, ridge_eps=ridge_eps, mask=mask,
         rows=(reach, reach + Hl),
-        fov_rows=(max(reach - h0, 0), min(reach + H - h0, Hl + 2 * reach)))
+        fov_rows=(max(reach - h0, 0), min(reach + H - h0, Hl + 2 * reach)),
+        **kw)
 
 
 def apply_ring(weights: RingWeights, X: torch.Tensor, H: int, W: int,
@@ -270,7 +287,8 @@ def fit_ring_model(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
 def local_background(Y: torch.Tensor, radius: int,
                      sn: Optional[torch.Tensor] = None,
                      thresh: float = 3.0, ssub: int = 1,
-                     neighbor_cutoff: float = 1.0, ridge_eps: float = 1e-5
+                     neighbor_cutoff: float = 1.0, ridge_eps: float = 1e-5,
+                     mesh=None
                      ) -> Tuple[torch.Tensor, RingWeights, torch.Tensor]:
     """Event-masked ring background (``local_background.m:66-138``): it
     needs no neuron model. The movie is centred to per-pixel mean 1;
@@ -282,37 +300,51 @@ def local_background(Y: torch.Tensor, radius: int,
     With ``ssub > 1`` all of it runs on the box-downsampled grid and the
     prediction is upsampled bilinearly.
 
-    Y: (T, H, W). Returns (Yest (T, H, W), weights, b0 (H, W))."""
+    Y: (T, H, W). Returns (Yest (T, H, W), weights, b0 (H, W)).
+
+    ``mesh``: Y and ``sn`` are this rank's blocks (T/frame, H/patch, W)
+    and so is what it returns; the slab's rows are a multiple of
+    ``ssub``. The mean is summed over 'frame', the annulus and the
+    prediction run K6 on the halo-padded slab (:func:`apply_ring`), the
+    event mask and the cleaned movie stay on the rank, and the weights
+    are fitted over all T frames, gathered over 'frame' with the ring's
+    reach in halo rows (:func:`fit_ring_weights_mesh`)."""
     T, H, W = Y.shape
-    Ymean = Y.mean(dim=0)
+    Hf = H if mesh is None else H * mesh.n_patch
+    Ymean = comm.frame_mean(Y, 0, mesh)
     Yc = Y - Ymean[None] + 1.0
-    Hs, Ws, radius_s = _ssub_geometry(H, W, radius, ssub)
+    Hs, Ws, radius_s = _ssub_geometry(Hf, W, radius, ssub)
     if ssub > 1:
         Yc = box_downsample(Yc, ssub=ssub)
         if sn is not None:
             sn = box_downsample(sn[None], ssub=ssub)[0]
     if sn is None:
-        sn = noise_psd_frames(Yc)
+        sn = noise_psd_frames(Yc, mesh=mesh)
     # the annulus average (local_background.m:66-70) as a ring apply with
     # uniform weights over each pixel's in-FOV neighbours
     _, valid = _neighbor_index(Hs, Ws, ring_offsets(radius_s))
     n_valid = np.maximum(valid.sum(axis=1, keepdims=True), 1)
-    w_unif = torch.as_tensor(valid / n_valid, dtype=torch.float32,
-                             device=Y.device)
+    w_unif = valid / n_valid
+    if mesh is not None:
+        d = Yc.shape[1] * Ws
+        w_unif = w_unif[mesh.p * d:(mesh.p + 1) * d]
+    w_unif = torch.as_tensor(w_unif, dtype=torch.float32, device=Y.device)
     Yconv = apply_ring(RingWeights(w=w_unif, w0=torch.zeros_like(
-        w_unif[:, 0])), Yc, Hs, Ws, radius_s, include_intercept=False)
+        w_unif[:, 0])), Yc, Hs, Ws, radius_s, include_intercept=False,
+        mesh=mesh)
     event = (Yc - Yconv) > thresh * sn[None]
     Yfit = torch.where(event, Yconv, Yc)
     del Yc, Yconv
-    weights = fit_ring_weights(Yfit, Hs, Ws, radius_s, ridge_eps=ridge_eps,
-                               mask=~event, intercept=False,
-                               neighbor_cutoff=neighbor_cutoff)
+    weights = fit_ring_weights_mesh(Yfit, Hs, Ws, radius_s, mesh,
+                                    ridge_eps=ridge_eps, mask=~event,
+                                    intercept=False,
+                                    neighbor_cutoff=neighbor_cutoff)
     del event
     Yest = apply_ring(weights, Yfit, Hs, Ws, radius_s,
-                      include_intercept=False)
+                      include_intercept=False, mesh=mesh)
     if ssub > 1:
-        Yest = resize_linear(Yest, (H, W))
-    b0 = Ymean - Yest.mean(dim=0)
+        Yest = resize_linear(Yest, (H, W), mesh=mesh)
+    b0 = Ymean - comm.frame_mean(Yest, 0, mesh)
     return Yest + b0[None], weights, b0
 
 

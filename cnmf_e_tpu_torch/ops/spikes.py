@@ -9,6 +9,7 @@ import torch.nn.functional as F
 
 from cnmf_e_tpu_torch.ops.ar import ar_kernel
 from cnmf_e_tpu_torch.ops.mcmc import conv_rows
+from cnmf_e_tpu_torch.parallel import comm
 
 _CHUNK = 1 << 24
 
@@ -30,29 +31,45 @@ def event_detection(C: torch.Tensor, neuron_sn: torch.Tensor,
 def decorr_temporal(C: torch.Tensor, S: torch.Tensor, A: torch.Tensor,
                     g: torch.Tensor, neuron_sn: torch.Tensor,
                     gSiz: float = 13.0, wd: int = 1,
-                    kernel_len: int = 500) -> torch.Tensor:
+                    kernel_len: int = 500, mesh=None) -> torch.Tensor:
     """Reduce temporal crosstalk between neighbouring neurons
     (``decorrTemporal.m``): a spike is zeroed where, in noise units, a
     neuron whose centre lies within gSiz of this one's spikes higher at
     that time; the surviving spikes are convolved with each neuron's AR
-    kernel. C/S: (K, T); A: (K, H, W); g: (K, p). Returns the new C."""
-    K, T = S.shape
-    H, W = A.shape[1:]
-    yy = torch.arange(H, dtype=A.dtype, device=A.device)[None, :, None]
+    kernel. C/S: (K, T); A: (K, H, W); g: (K, p). Returns the new C.
+
+    ``mesh``: C, S, g and ``neuron_sn`` are this patch rank's whole
+    traces (``comm.traces_to_neurons``' rows of K) and A its rows of all
+    K footprints; the centres take A's moments summed over 'patch', the
+    neighbours' spikes and noise are gathered over 'patch', and the new
+    C is the rank's traces."""
+    K, H, W = A.shape
+    T = S.shape[1]
+    y0 = 0 if mesh is None else mesh.p * H
+    yy = torch.arange(y0, y0 + H, dtype=A.dtype,
+                      device=A.device)[None, :, None]
     xx = torch.arange(W, dtype=A.dtype, device=A.device)[None, None, :]
-    mass = A.sum(dim=(1, 2)) + 1e-12
-    cy = (A * yy).sum(dim=(1, 2)) / mass
-    cx = (A * xx).sum(dim=(1, 2)) / mass
-    dist = torch.sqrt((cy[:, None] - cy[None]) ** 2
-                      + (cx[:, None] - cx[None]) ** 2)
-    neigh = dist < gSiz                                   # (K, K), self too
+    mom = comm.psum(torch.stack([A.sum(dim=(1, 2)),
+                                 (A * yy).sum(dim=(1, 2)),
+                                 (A * xx).sum(dim=(1, 2))]), mesh, "patch")
+    mass = mom[0] + 1e-12
+    cy = mom[1] / mass
+    cx = mom[2] / mass
+    k0, k1 = (0, K) if mesh is None else mesh.neurons(K)
+    dist = torch.sqrt((cy[k0:k1, None] - cy[None]) ** 2
+                      + (cx[k0:k1, None] - cx[None]) ** 2)
+    neigh = dist < gSiz                                   # (k, K), self too
     Sn = S / torch.clamp(neuron_sn, min=1e-12)[:, None]
+    Sn_all = Sn if mesh is None else comm.all_gather_cat(
+        S, 0, mesh.patch_group) / torch.clamp(comm.all_gather_cat(
+            neuron_sn, 0, mesh.patch_group), min=1e-12)[:, None]
     # per neuron and time, the largest normalized spike of its neighbours,
-    # in row chunks of at most _CHUNK elements of the (K, K, T) product
+    # in row chunks of at most _CHUNK elements of the (k, K, T) product
+    k = Sn.shape[0]
     kc = max(1, _CHUNK // max(K * T, 1))
     neigh_max = torch.cat([
-        torch.where(neigh[k0:k0 + kc, :, None], Sn[None], -torch.inf
-                    ).amax(dim=1) for k0 in range(0, K, kc)]) if K else Sn
+        torch.where(neigh[i0:i0 + kc, :, None], Sn_all[None], -torch.inf
+                    ).amax(dim=1) for i0 in range(0, k, kc)]) if k else Sn
     dominated = Sn < neigh_max
     if wd > 1:
         x = F.pad(dominated.to(Sn.dtype)[:, None], (wd // 2, wd - 1 - wd // 2))

@@ -1,6 +1,6 @@
 """Rank bodies for :func:`cnmf_e_tpu_torch.parallel.launch.spawn`: the
 mesh cases that ``tests/test_torch_mesh*.py`` hold to the JAX package on
-the CPU and ``chip_smoke.py`` phases 10 and 11 run on the card.
+the CPU and ``chip_smoke.py`` phases 10 to 12 run on the card.
 
 Each body takes the rank's :class:`~cnmf_e_tpu_torch.parallel.mesh.Mesh`
 first and full numpy inputs after it, cuts its own blocks, runs the
@@ -13,6 +13,10 @@ imports only torch, numpy and the port.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import glob
+import hashlib
+import os
 import time
 
 import numpy as np
@@ -20,29 +24,41 @@ import torch
 import torch.distributed as dist
 
 from cnmf_e_tpu_torch import cuda_build
+from cnmf_e_tpu_torch.checkpoint import RunLog
 from cnmf_e_tpu_torch.convert import (gather_state, gather_step_state,
                                       params_from_dict, shard_state,
-                                      shard_step_state, state_to_numpy)
+                                      shard_step_state, state_from_numpy,
+                                      state_to_numpy)
 from cnmf_e_tpu_torch.io.store import MovieStore
-from cnmf_e_tpu_torch.models.background import update_background
+from cnmf_e_tpu_torch.models.background import (background_of,
+                                                update_background)
 from cnmf_e_tpu_torch.models.batch import fit_batches
 from cnmf_e_tpu_torch.models.initialize import initialize_greedy
 from cnmf_e_tpu_torch.models.merge import merge_neurons, merge_neurons_seq
 from cnmf_e_tpu_torch.models.pipeline import CNMFE
 from cnmf_e_tpu_torch.models.qc import remove_false_positives
+from cnmf_e_tpu_torch.models.spatial import update_spatial
 from cnmf_e_tpu_torch.models.state import RingWeights
 from cnmf_e_tpu_torch.models.streaming import fit_streaming
+from cnmf_e_tpu_torch.models.temporal import update_temporal
 from cnmf_e_tpu_torch.ops import hals_kernels, oasis_kernels, ring_kernels
 from cnmf_e_tpu_torch.ops.corr import correlation_image
+from cnmf_e_tpu_torch.ops.detrend import detrend
 from cnmf_e_tpu_torch.ops.filters import (filter_movie, gaussian_psf,
                                           resize_linear)
+from cnmf_e_tpu_torch.ops.lowrank import fit_lowrank_model, nmf_hals
+from cnmf_e_tpu_torch.ops.morphology import search_locations_ellipse
 from cnmf_e_tpu_torch.ops.noise import noise_psd_frames
-from cnmf_e_tpu_torch.ops.ring import apply_ring, fit_ring_weights_mesh
+from cnmf_e_tpu_torch.ops.ring import (apply_ring, fit_ring_weights_mesh,
+                                       local_background)
+from cnmf_e_tpu_torch.ops.spikes import decorr_temporal
 from cnmf_e_tpu_torch.ops.stats import (fast_median, fast_median_masked,
                                         submedian_mean)
 from cnmf_e_tpu_torch.parallel import comm
-from cnmf_e_tpu_torch.parallel.mesh import (gather_image, gather_movie,
-                                            shard_image, shard_movie)
+from cnmf_e_tpu_torch.parallel.mesh import (gather_footprints, gather_image,
+                                            gather_movie, gather_traces,
+                                            shard_footprints, shard_image,
+                                            shard_movie, shard_traces)
 from cnmf_e_tpu_torch.parallel.multihost import (frame_range_for_process,
                                                  load_sharded_movie)
 from cnmf_e_tpu_torch.parallel.step import make_update_step
@@ -257,49 +273,273 @@ def merge_qc_case(mesh, d, params):
     return out
 
 
-def fit_guard_cases(mesh, Y, params, variants):
-    """The exception each invalid mesh call raises: ``variants`` maps a
-    name to a dict of params fields to replace (dotted names) or to one
-    of the calls "resume_from", "run_log", "fit_batches", "dff",
-    "background", "reconstruction", "residual", "compute_rss",
-    "other_device", "unequal_blocks"; the exception's type name and message by name."""
-    import dataclasses
+def with_fields(p, fields: dict):
+    """``p`` with the params fields ``fields`` replaced (dotted names,
+    such as "background.model")."""
+    for dotted, v in fields.items():
+        sec, name = dotted.split(".")
+        p = p.replace(**{sec: dataclasses.replace(getattr(p, sec),
+                                                  **{name: v})})
+    return p
+
+
+def digest(arrays: dict) -> dict:
+    """A hash of each array's bytes: two ranks' values are bit-identical
+    where their digests are equal."""
+    return {k: hashlib.sha1(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for k, v in arrays.items()}
+
+
+def fit_guard_cases(mesh, Y, params, variants, workdir):
+    """Each option and method of ``CNMFE`` on the mesh, and the exception
+    each invalid call raises. ``variants`` maps a name to a dict of params
+    fields to replace (dotted names), or to one of "run_log",
+    "resume_from" (the run_log case's init snapshot), "fit_batches",
+    "dff", "background", "reconstruction", "residual", "compute_rss" (on
+    a fitted base model), "other_device", "unequal_blocks". By name:
+    ("ok", digest, checks) where it runs (the digest of the full state
+    and of the method's value on this rank; checks: n_active, whether
+    every value is finite, the snapshots written), else the exception's
+    type name and message."""
     Yl = shard_movie(np.asarray(Y, np.float32), mesh)
     base = params_from_dict(params)
+    fitted = []
 
-    def with_fields(p, fields):
-        for dotted, v in fields.items():
-            sec, name = dotted.split(".")
-            p = p.replace(**{sec: dataclasses.replace(getattr(p, sec),
-                                                      **{name: v})})
-        return p
+    def model():
+        if not fitted:
+            m = CNMFE(base, mesh=mesh)
+            m.fit(Yl, n_outer=1)
+            fitted.append(m)
+        return fitted[0]
 
     def run(what):
-        model = CNMFE(base, mesh=mesh)
+        """(arrays, checks) of a call that runs; None after one that was
+        to raise and did not."""
         if isinstance(what, dict):
-            CNMFE(with_fields(base, what), mesh=mesh).fit(Yl, n_outer=1)
-        elif what in ("resume_from", "run_log"):
-            model.fit(Yl, **{what: "x"})
-        elif what == "fit_batches":
+            st = CNMFE(with_fields(base, what), mesh=mesh).fit(Yl, n_outer=1)
+            return state_to_numpy(st), {}
+        if what == "run_log":
+            log = (RunLog(workdir, run_name="guards", params=base)
+                   if mesh.rank == 0 else None)
+            st = CNMFE(base, mesh=mesh).fit(Yl, n_outer=1, run_log=log)
+            dist.barrier()
+            snaps = [os.path.basename(f).split("_")[2]
+                     for f in sorted(glob.glob(os.path.join(
+                         workdir, "guards", "snapshot_*.npz")))]
+            return state_to_numpy(st), dict(snaps=snaps)
+        if what == "resume_from":
+            snap, = glob.glob(os.path.join(workdir, "guards",
+                                           "snapshot_000_init_*.npz"))
+            return state_to_numpy(CNMFE(base, mesh=mesh).fit(
+                Yl, n_outer=1, resume_from=snap)), {}
+        if what == "fit_batches":
             fit_batches([Yl], base, mesh=mesh)
         elif what == "other_device":
             CNMFE(base, device="meta", mesh=mesh)
         elif what == "unequal_blocks":
-            model.fit(Yl[:Yl.shape[0] - mesh.f])
+            CNMFE(base, mesh=mesh).fit(Yl[:Yl.shape[0] - mesh.f])
         else:
-            getattr(model, what)(Yl)
+            m = model()
+            out = getattr(m, what)(Yl)
+            out = out if isinstance(out, tuple) else (out,)
+            out = [np.asarray(x if isinstance(x, float)
+                              else x.cpu().numpy()) for x in out]
+            arrays = dict(state_to_numpy(m.state),
+                          shapes=np.array([x.shape for x in out]))
+            if what == "compute_rss":
+                arrays["rss"] = out[0]
+            return arrays, dict(finite=all(np.isfinite(x).all()
+                                           for x in out))
+        return None
     out = {}
     for name, what in variants:
         try:
-            run(what)
-            out[name] = None
+            res = run(what)
         except (NotImplementedError, ValueError) as e:
             out[name] = (type(e).__name__, str(e))
+            continue
+        if res is None:
+            out[name] = None
+            continue
+        arrays, checks = res
+        checks["n_active"] = int(arrays["active"].sum())
+        checks.setdefault("finite", all(
+            np.isfinite(v).all() for v in arrays.values()
+            if v.dtype.kind == "f"))
+        out[name] = ("ok", digest(arrays), checks)
     return out
 
 
 # ------------------------------------------------------------------ #
-# card bodies (chip_smoke.py phases 10 and 11)
+# every option and method of CNMFE on the mesh
+# (tests/test_torch_mesh_options.py, tests/test_torch_mesh_methods.py)
+# ------------------------------------------------------------------ #
+def local_bg_case(mesh, Y, radius, ssub, cutoff):
+    """``local_background(mesh=...)`` of the full movie ``Y``: the full
+    prediction, weights and b0."""
+    Yest, wts, b0 = local_background(shard_movie(Y, mesh), radius=radius,
+                                     ssub=ssub, neighbor_cutoff=cutoff,
+                                     mesh=mesh)
+    return dict(Yest=gather_movie(Yest, mesh).cpu().numpy(),
+                w=gather_image(wts.w, mesh).cpu().numpy(),
+                b0=gather_image(b0, mesh).cpu().numpy())
+
+
+def bg_model_case(mesh, Y, d, params, sn):
+    """``update_background`` then ``background_of`` on the mesh from the
+    full state ``d`` (pixel noise ``sn`` or None): the full state's
+    background fields and the full background movie."""
+    p = params_from_dict(params)
+    Yl = shard_movie(np.asarray(Y, np.float32), mesh)
+    st = update_background(Yl, shard_state(d, mesh), p,
+                           sn_pix=None if sn is None else shard_image(
+                               np.asarray(sn, np.float32), mesh),
+                           mesh=mesh)
+    B = gather_movie(background_of(Yl, st, p, mesh=mesh), mesh)
+    full = _full(st, mesh)
+    return dict({k: full[k] for k in ("b0", "ring_w", "bg_b", "bg_f")
+                 if k in full}, B=B.cpu().numpy())
+
+
+def lowrank_case(mesh, Y, A, C, rank, mode):
+    """``fit_lowrank_model(mesh=...)``: the full b, f and b0."""
+    b, f, b0 = fit_lowrank_model(shard_movie(Y, mesh),
+                                 shard_footprints(A, mesh),
+                                 shard_traces(C, mesh), rank, mode=mode,
+                                 mesh=mesh)
+    return dict(b=gather_footprints(b, mesh).cpu().numpy(),
+                f=gather_traces(f, mesh).cpu().numpy(),
+                b0=gather_image(b0, mesh).cpu().numpy())
+
+
+def nmf_case(mesh, X, rank, n_iter, W0, H0):
+    """``nmf_hals(mesh=...)`` of the full (d, T) matrix ``X`` from the
+    starting factors (W0, H0): the full W and H."""
+    rows = shard_image(X, mesh)
+    Xl = shard_traces(rows, mesh)
+    Wf, Hf = nmf_hals(Xl, rank, n_iter=n_iter, mesh=mesh,
+                      init=(shard_image(W0, mesh), shard_traces(H0, mesh)))
+    return dict(W=gather_image(Wf, mesh).cpu().numpy(),
+                H=gather_traces(Hf, mesh).cpu().numpy())
+
+
+def ellipse_case(mesh, A, dist):
+    """``search_locations_ellipse(mesh=...)`` of the full footprints: the
+    full masks."""
+    m = search_locations_ellipse(shard_footprints(A, mesh), dist=dist,
+                                 mesh=mesh)
+    return gather_footprints(m.to(torch.uint8), mesh).cpu().numpy() > 0
+
+
+def spatial_case(mesh, Y, d, params, sn):
+    """``update_spatial(mesh=...)`` from the full state ``d``: the full
+    A."""
+    st = update_spatial(shard_movie(np.asarray(Y, np.float32), mesh),
+                        shard_state(d, mesh), params_from_dict(params),
+                        sn_pix=None if sn is None else shard_image(
+                            np.asarray(sn, np.float32), mesh), mesh=mesh)
+    return gather_footprints(st.A, mesh).cpu().numpy()
+
+
+def temporal_case(mesh, Y, d, params):
+    """``update_temporal(mesh=...)`` from the full state ``d``: the full
+    C, C_raw, S and g."""
+    st = update_temporal(shard_movie(np.asarray(Y, np.float32), mesh),
+                         shard_state(d, mesh), params_from_dict(params),
+                         mesh)
+    full = _full(st, mesh)
+    return {k: full[k] for k in ("C", "C_raw", "S", "g")}
+
+
+def decorr_case(mesh, C, S, A, g, sn, gSiz, wd):
+    """``decorr_temporal(mesh=...)``: each patch rank decorrelates its
+    rows of the whole traces; the full result."""
+    k0, k1 = mesh.neurons(C.shape[0])
+    dev = mesh.device
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x[k0:k1]), device=dev)
+    out = decorr_temporal(t(C), t(S), shard_footprints(A, mesh), t(g),
+                          t(sn), gSiz=gSiz, wd=wd, mesh=mesh)
+    return comm.all_gather_cat(out, 0, mesh.patch_group).cpu().numpy()
+
+
+def detrend_case(mesh, X, nk, method):
+    """``detrend(mesh=...)`` of the full (d, T) traces, each rank its
+    pixels and frames: the full result."""
+    Xl = shard_traces(shard_image(X, mesh), mesh)
+    return gather_traces(gather_image(detrend(Xl, nk, method, mesh), mesh),
+                         mesh).cpu().numpy()
+
+
+def methods_case(mesh, Y, d, params, windows):
+    """Every method of ``CNMFE`` on the mesh with the full state ``d`` as
+    its fitted state: ``dff`` at each window of ``windows`` (None: the
+    whole session), ``background``, ``reconstruction``, ``residual`` and
+    ``compute_rss``, each full."""
+    m = CNMFE(params_from_dict(params), mesh=mesh)
+    m.state = state_from_numpy(d, device=mesh.device)
+    Yl = shard_movie(np.asarray(Y, np.float32), mesh)
+    out = {}
+    for w in windows:
+        C_df, C_raw_df, F0 = m.dff(Yl, window=w)
+        out[f"dff_{w}"] = tuple(
+            (gather_traces(x, mesh) if x.shape[1] > 1 else x).cpu().numpy()
+            for x in (C_df, C_raw_df, F0))
+    for what in ("background", "reconstruction", "residual"):
+        out[what] = gather_movie(getattr(m, what)(Yl), mesh).cpu().numpy()
+    out["rss"] = m.compute_rss(Yl)
+    return out
+
+
+def dff_mode_case(mesh, Y, d, params):
+    """``extract_dff(baseline="mode")`` on the mesh: C_df, C_raw_df (full)
+    and F0."""
+    from cnmf_e_tpu_torch.models.dff import extract_dff
+    C_df, C_raw_df, F0 = extract_dff(
+        shard_movie(np.asarray(Y, np.float32), mesh),
+        shard_state(d, mesh), params_from_dict(params), baseline="mode",
+        mesh=mesh)
+    return tuple(x.cpu().numpy() for x in (gather_traces(C_df, mesh),
+                                           gather_traces(C_raw_df, mesh),
+                                           F0))
+
+
+def log_resume_case(mesh, Y, params, workdir, n_outer):
+    """A fit with a run log (rank 0's, in ``workdir``/mesh), then a fit
+    resumed from its init snapshot: both full states, the snapshot
+    names and the log's lines (rank 0)."""
+    p = params_from_dict(params)
+    Yl = shard_movie(np.asarray(Y, np.float32), mesh)
+    log = RunLog(workdir, run_name="mesh") if mesh.rank == 0 else None
+    st = CNMFE(p, mesh=mesh).fit(Yl, n_outer=n_outer, run_log=log)
+    dist.barrier()
+    snap, = glob.glob(os.path.join(workdir, "mesh",
+                                   "snapshot_000_init_*.npz"))
+    resumed = CNMFE(p, mesh=mesh).fit(Yl, n_outer=n_outer,
+                                      resume_from=snap)
+    out = dict(state=state_to_numpy(st), resumed=state_to_numpy(resumed),
+               snap=snap)
+    if mesh.rank == 0:
+        out["snaps"] = sorted(os.path.basename(f) for f in glob.glob(
+            os.path.join(workdir, "mesh", "snapshot_*.npz")))
+        with open(log.log_path) as f:
+            out["log"] = f.read().splitlines()
+    return out
+
+
+def qc_pixels_case(mesh, d, params, active_pixels):
+    """``remove_false_positives(active_pixels=...)`` on the mesh, each
+    rank its rows of the mask: the full active mask."""
+    st = remove_false_positives(
+        shard_state(d, mesh), params_from_dict(params),
+        active_pixels=shard_image(np.asarray(active_pixels), mesh),
+        mesh=mesh)
+    return st.active.cpu().numpy()
+
+
+# ------------------------------------------------------------------ #
+# card bodies (chip_smoke.py phases 10 to 12)
 # ------------------------------------------------------------------ #
 class count_references:
     """Counts the calls of every plain kernel version while active; yields
@@ -462,14 +702,15 @@ class CommStageTimer(StageTimer):
 
 def card_fit(mesh, y_path, warm_path, params, n_outer):
     """``CNMFE(mesh=...).fit`` on the card: a warm-up on the movie at
-    ``warm_path``, then the counted and timed fit of the movie at
-    ``y_path`` (.npy, each rank reads only its block) with a StageTimer
-    and this rank's peak memory; the full state on rank 0, every rank's
-    active mask."""
+    ``warm_path`` (None: none), then the counted and timed fit of the
+    movie at ``y_path`` (.npy, each rank reads only its block) with a
+    StageTimer and this rank's peak memory; the full state on rank 0,
+    every rank's active mask."""
     p = params_from_dict(params)
-    CNMFE(p, mesh=mesh).fit(
-        shard_movie(np.load(warm_path, mmap_mode="r"), mesh),
-        n_outer=n_outer)
+    if warm_path is not None:
+        CNMFE(p, mesh=mesh).fit(
+            shard_movie(np.load(warm_path, mmap_mode="r"), mesh),
+            n_outer=n_outer)
     Yl = shard_movie(np.load(y_path, mmap_mode="r"), mesh)
     timer = CommStageTimer(mesh.device)
     card = mesh.device.type == "cuda"
@@ -477,8 +718,7 @@ def card_fit(mesh, y_path, warm_path, params, n_outer):
         torch.cuda.reset_peak_memory_stats(mesh.device)
     with count_broadcasts() as calls:
         state, info = _path_run(mesh, lambda: CNMFE(
-            p, mesh=mesh).fit(Yl, n_outer=n_outer,
-                                                  timer=timer))
+            p, mesh=mesh).fit(Yl, n_outer=n_outer, timer=timer))
     info.update(stages=dict(timer.times), stage_comm=dict(timer.comm),
                 broadcasts=calls[0],
                 peak=torch.cuda.max_memory_allocated(mesh.device) if card
@@ -486,6 +726,55 @@ def card_fit(mesh, y_path, warm_path, params, n_outer):
                 active=state.active.cpu().numpy(),
                 state=state_to_numpy(state) if mesh.rank == 0 else None)
     return info
+
+
+def card_methods(mesh, y_path, params, n_outer, workdir):
+    """On the card: a fit of the movie at ``y_path`` with a run log
+    (rank 0 writes it under ``workdir``), a fit resumed from its init
+    snapshot, and every method of the fitted model on the rank's block,
+    each held to one process's method on the whole movie on the rank's
+    card: the largest difference over the mesh relative to the one
+    process's scale. The states on rank 0."""
+    p = params_from_dict(params)
+    Y = np.load(y_path, mmap_mode="r")
+    Yl = shard_movie(Y, mesh)
+    log = RunLog(workdir, run_name="mesh") if mesh.rank == 0 else None
+    m = CNMFE(p, mesh=mesh)
+    with count_broadcasts() as calls:
+        m.fit(Yl, n_outer=n_outer, run_log=log)
+        dist.barrier()
+        snap, = glob.glob(os.path.join(workdir, "mesh",
+                                       "snapshot_000_init_*.npz"))
+        resumed = CNMFE(p, mesh=mesh).fit(Yl, n_outer=n_outer,
+                                          resume_from=snap)
+    one = CNMFE(p, device=mesh.device)
+    one.state = m.state
+    Yf = torch.as_tensor(np.array(Y), device=mesh.device)
+    T, H = Yf.shape[:2]
+    (t0, t1), (h0, h1) = mesh.frames(T), mesh.rows(H)
+
+    def err(got, ref):
+        e = torch.tensor([float((got - ref).abs().max())
+                          / max(float(ref.abs().max()), 1e-30)],
+                         device=mesh.device)
+        return float(comm.all_reduce_max(e, None)[0])
+    errs = {what: err(getattr(m, what)(Yl),
+                      getattr(one, what)(Yf)[t0:t1, h0:h1])
+            for what in ("background", "reconstruction", "residual")}
+    for w in (None, 101):
+        got, ref = m.dff(Yl, window=w), one.dff(Yf, window=w)
+        for name, g, r in zip(("C_df", "C_raw_df", "F0"), got, ref):
+            errs[f"dff_{w}_{name}"] = err(g, r if r.shape[1] == 1
+                                          else r[:, t0:t1])
+    rss, rss_one = m.compute_rss(Yl), one.compute_rss(Yf)
+    errs["rss"] = abs(rss - rss_one) / rss_one
+    lead = mesh.rank == 0
+    return dict(errors=errs, rss=rss, snap=snap, broadcasts=calls[0],
+                snaps=sorted(os.path.basename(f) for f in glob.glob(
+                    os.path.join(workdir, "mesh", "snapshot_*.npz"))),
+                active=m.state.active.cpu().numpy(),
+                state=state_to_numpy(m.state) if lead else None,
+                resumed=state_to_numpy(resumed) if lead else None)
 
 
 def card_fit_identity(mesh, y_path, warm_path, params, n_outer):

@@ -8,7 +8,10 @@ tolerances: the ring fit of a sharded residual (w atol 1e-3),
 ``_mini_movie()`` (equal n_active, footprint IoU >= 0.99, every trace's
 correlation >= 0.999; the JAX package marks its fit case ``slow``, the
 port's runs here), and ``update_background`` from the JAX init's state
-(b0 rtol/atol 1e-3, w 2e-3). Every rank must return the same active mask.
+(b0 rtol/atol 1e-3, w 2e-3), and the svd, nmf and local models'
+``update_background`` and ``background_of`` from the same state (ROADMAP
+§C (u)'s and ``tests/test_torch_lowrank.py``'s bars). Every rank must
+return the same active mask.
 One spawn of 4 x 2 CPU ranks (``cnmf_e_tpu_torch.parallel.launch.spawn``,
 rank bodies in ``cnmf_e_tpu_torch/parallel/_selftest.py``) runs every
 case: a 120 s deadline, and a 60 s timeout on every collective.
@@ -24,12 +27,14 @@ import torch
 
 from cnmf_e_tpu.config import (BackgroundParams, CNMFEParams, InitParams,
                                MergeParams)
+from cnmf_e_tpu.models.background import background_of as jax_bg_of
 from cnmf_e_tpu.models.background import update_background as jax_bg
 from cnmf_e_tpu.models.initialize import initialize_greedy as jax_init
 from cnmf_e_tpu.models.pipeline import CNMFE as JaxCNMFE
 from cnmf_e_tpu.ops.ring import fit_ring_weights as jax_fit_ring_weights
 from cnmf_e_tpu.utils.simulate import simulate_movie
-from cnmf_e_tpu_torch.convert import params_from_dict
+from cnmf_e_tpu_torch.convert import params_from_dict, state_from_numpy
+from cnmf_e_tpu_torch.models import background as tbg
 from cnmf_e_tpu_torch.models.initialize import initialize_greedy
 from cnmf_e_tpu_torch.models.pipeline import CNMFE
 from cnmf_e_tpu_torch.ops.ring import fit_ring_weights
@@ -40,6 +45,7 @@ torch.set_num_threads(1)
 
 N_PATCH, N_FRAME = 4, 2
 RING = dict(H=32, W=32, T=64, radius=4)      # test_ring_fit_compiles_under_mesh
+BG_MODELS = ("svd", "nmf", "local")
 
 
 def _mini_params():
@@ -49,6 +55,14 @@ def _mini_params():
                         max_neurons=16, seeds_per_round=8, max_rounds=3),
         background=BackgroundParams(model="ring", ring_radius=6),
         merge=MergeParams(dmin=4.0))
+
+
+def _bg_params(model):
+    """The mini params with another background model (rank 3 for the
+    low-rank ones)."""
+    p = _mini_params()
+    return p.replace(background=dataclasses.replace(p.background,
+                                                    model=model, rank=3))
 
 
 def _mini_movie():
@@ -89,8 +103,11 @@ def ranks():
             ("init", "init_case", (gt.Y, pd)),
             ("background", "background_case", (gt.Y, d0, pd)),
             ("fit", "fit_case", (gt.Y, pd, 1))]
+    jobs += [(f"bg_{m}", "bg_model_case",
+              (gt.Y, d0, dataclasses.asdict(_bg_params(m)), None))
+             for m in BG_MODELS]
     return spawn(_selftest.cases, N_PATCH, N_FRAME, device="cpu",
-                 args=(jobs,), timeout=120, pg_timeout=60)
+                 args=(jobs,), timeout=180, pg_timeout=60)
 
 
 def _active(A, C, act):
@@ -157,6 +174,48 @@ def test_update_background_shard_invariance(ranks):
                                atol=1e-3)
     np.testing.assert_allclose(got["w"], np.asarray(ref.W.w), rtol=2e-3,
                                atol=2e-3)
+
+
+def _rel(B, ref, b0):
+    """||B - ref|| over the norm of ref's part above b0."""
+    return float(np.linalg.norm(B - ref)
+                 / np.linalg.norm(ref - np.asarray(b0)[None]))
+
+
+@pytest.mark.parametrize("against", ["jax", "port"])
+@pytest.mark.parametrize("model", BG_MODELS)
+def test_update_background_models_on_4x2(ranks, model, against):
+    """The svd, nmf and local backgrounds refitted on the 4 x 2 mesh
+    from the JAX init's state, and their background movie B. b0 within
+    1e-4 of its scale (the mean of the residual, or the local model's);
+    the local w within 2e-3 and B within 1e-4; the low-rank B (whose b
+    and f have free signs) within 1e-3 of the JAX package's and 1e-4 of
+    the port's, relative to its part above b0. The NMF's starting draw
+    is the port's (``ops/lowrank.py``), so its B is held to the port's
+    alone."""
+    gt = _mini_movie()
+    params = _bg_params(model)
+    got = ranks[0][f"bg_{model}"]
+    if against == "jax":
+        st = jax_bg(jnp.asarray(gt.Y), _jax_init_state(), params)
+        B = np.asarray(jax_bg_of(jnp.asarray(gt.Y), st, params))
+    else:
+        tp = params_from_dict(dataclasses.asdict(params))
+        Yt = torch.tensor(gt.Y)
+        st = tbg.update_background(Yt, state_from_numpy(
+            _state_dict(_jax_init_state()), device="cpu"), tp)
+        B = tbg.background_of(Yt, st, tp).numpy()
+    b0 = np.asarray(st.b0)
+    scale = np.abs(b0).max()
+    assert np.abs(got["b0"] - b0).max() <= 1e-4 * scale
+    if model == "local":
+        w = np.asarray(st.W.w)
+        assert np.abs(got["ring_w"] - w).max() <= 2e-3 * np.abs(w).max()
+        assert np.abs(got["B"] - B).max() <= 1e-4 * np.abs(B).max()
+    elif against == "port":
+        assert _rel(got["B"], B, b0) <= 1e-4
+    elif model == "svd":
+        assert _rel(got["B"], B, b0) <= 1e-3
 
 
 @pytest.mark.parametrize("against", ["jax", "port"])

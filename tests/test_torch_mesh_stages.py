@@ -18,8 +18,15 @@ timeout on every collective) runs:
   * the merges and the QC of a state with a seeded duplicate (as
     ``__graft_entry__.py:120-147`` seeds one): the same clusters and
     active masks as one process;
-  * the NotImplementedError of every option off the mesh path and the
-    ValueError of every indivisible dimension.
+  * every option and method of ``CNMFE`` on the mesh (each background
+    model, search method and spatial algorithm, ``decorrelate``, the
+    decimated and detrended init, ``run_log``, ``resume_from``, ``dff``,
+    ``background``, ``reconstruction``, ``residual``, ``compute_rss``):
+    each runs, and every rank returns the same state, bit for bit; the
+    NotImplementedError of ``fit_batches(mesh=)`` and the ValueError of
+    every indivisible dimension. Their accuracy is
+    ``tests/test_torch_mesh_options.py``'s and
+    ``tests/test_torch_mesh_methods.py``'s.
 """
 
 import dataclasses
@@ -52,6 +59,7 @@ torch.set_num_threads(1)
 N_PATCH, N_FRAME = 2, 2
 STATS = dict(T=64, H=8, W=12)
 FILTERS = dict(T=400, H=8, W=12, gSig=3.0, ssub=2, noise_cap=300)
+GUARD_T = 128               # the guard cases' frames of the mini movie
 GUARDS = [
     ("bg_local", {"background.model": "local"}),
     ("bg_svd", {"background.model": "svd"}),
@@ -63,7 +71,8 @@ GUARDS = [
     ("init_ssub", {"init.ssub": 2}),
     ("init_tsub", {"init.tsub": 2}),
     ("init_nk", {"init.nk": 3}),
-    ("resume_from", "resume_from"), ("run_log", "run_log"),
+    # run_log writes the snapshot that resume_from restores
+    ("run_log", "run_log"), ("resume_from", "resume_from"),
     ("fit_batches", "fit_batches"), ("dff", "dff"),
     ("background", "background"), ("reconstruction", "reconstruction"),
     ("residual", "residual"), ("compute_rss", "compute_rss"),
@@ -72,19 +81,20 @@ GUARDS = [
     ("bg_ssub", {"background.ssub": 3}),
     ("other_device", "other_device"),
     ("unequal_blocks", "unequal_blocks"),
+    ("init_tsub_frames", {"init.tsub": 3}),
+    ("init_ssub_rows", {"init.ssub": 3}),
 ]
+# the options and methods that run on the mesh
+RUNS = {"bg_local", "bg_svd", "bg_nmf", "ellipse", "nnls", "hals_thresh",
+        "decorrelate", "init_ssub", "init_tsub", "init_nk", "run_log",
+        "resume_from", "dff", "background", "reconstruction", "residual",
+        "compute_rss"}
 # what each guard's message names
-NAMES = dict(bg_local="background.model", bg_svd="background.model",
-             bg_nmf="background.model", ellipse="search_method",
-             nnls="spatial.algorithm", hals_thresh="spatial.algorithm",
-             decorrelate="decorrelate", init_ssub="init.ssub",
-             init_tsub="init.tsub", init_nk="init.nk",
-             resume_from="resume_from", run_log="run_log",
-             fit_batches="fit_batches", dff="dff", background="background",
-             reconstruction="reconstruction", residual="residual",
-             compute_rss="compute_rss", K_max="K = 15",
+NAMES = dict(fit_batches="fit_batches", K_max="K = 15",
              seeds_per_round="seeds_per_round", bg_ssub="background.ssub",
-             other_device="not the mesh's", unequal_blocks="differ in T")
+             other_device="not the mesh's", unequal_blocks="differ in T",
+             init_tsub_frames="init.tsub = 3",
+             init_ssub_rows="init.ssub = 3")
 
 
 def _params(ssub=1):
@@ -140,7 +150,7 @@ def _duplicate_state():
 
 
 @pytest.fixture(scope="module")
-def ranks():
+def ranks(tmp_path_factory):
     gt = _mini_movie()
     X, M = _stats_inputs()
     jobs = [("fit", "fit_case", (gt.Y, dataclasses.asdict(_params(2)), 1)),
@@ -150,11 +160,11 @@ def ranks():
                                          FILTERS["noise_cap"])),
             ("merge", "merge_qc_case", (_duplicate_state(),
                                         dataclasses.asdict(_params()))),
-            ("guards", "fit_guard_cases", (gt.Y,
-                                           dataclasses.asdict(_params()),
-                                           GUARDS))]
+            ("guards", "fit_guard_cases", (
+                gt.Y[:GUARD_T], dataclasses.asdict(_params()), GUARDS,
+                str(tmp_path_factory.mktemp("guards"))))]
     return spawn(_selftest.cases, N_PATCH, N_FRAME, device="cpu",
-                 args=(jobs,), timeout=120, pg_timeout=60)
+                 args=(jobs,), timeout=240, pg_timeout=60)
 
 
 def _active(A, C, act):
@@ -259,15 +269,24 @@ def test_merge_and_qc_with_a_seeded_duplicate(ranks, mode):
 
 @pytest.mark.parametrize("name", [n for n, _ in GUARDS])
 def test_mesh_guards(ranks, name):
-    """Each option off the mesh path raises NotImplementedError naming
-    it; each dimension that does not divide raises a ValueError naming
-    it; every rank raises alike."""
+    """Each option and method of ``CNMFE`` runs on the mesh, finds
+    neurons, gives finite values, and every rank returns the same state
+    (and method value) bit for bit; ``fit_batches`` raises
+    NotImplementedError naming it; each dimension that does not divide
+    raises a ValueError naming it; every rank raises alike."""
     got = ranks[0]["guards"][name]
     assert got is not None, name
+    if name in RUNS:
+        kind, dig, checks = got
+        assert kind == "ok", got
+        assert checks["finite"] and checks["n_active"] > 0, checks
+        if name == "run_log":
+            assert checks["snaps"] == ["init", "final"], checks
+        for r in ranks[1:]:
+            assert r["guards"][name][:2] == ("ok", dig), name
+        return
     kind, msg = got
-    want = "ValueError" if name in ("K_max", "seeds_per_round", "bg_ssub",
-                                    "other_device", "unequal_blocks") \
-        else "NotImplementedError"
+    want = "NotImplementedError" if name == "fit_batches" else "ValueError"
     assert kind == want, got
     assert NAMES[name] in msg, msg
     for r in ranks[1:]:
