@@ -50,7 +50,8 @@ Phases (each fails the script when its check fails):
      wall, stage seconds, peak memory and the upload's bytes and share of
      the wall printed;
   6b. fit_batches on phase 4's movie at 6000 frames in three batches of
-     2000 with phase 4's parameters; F1 >= 0.8;
+     2000 with phase 4's parameters (its stage seconds printed); F1 >=
+     0.8; its state is phase 13's reference;
   6c. fit_streaming of a 48x48x600 store on the card and on the CPU must
      agree;
   7. the command line (cnmf_e_tpu_torch/run.py, --device cuda by default)
@@ -72,11 +73,12 @@ Phases (each fails the script when its check fails):
      class (lasso, then nnls) on phase 7c's 256x256x2000 2p movie, K1 to
      K4 launched and no ring kernel, recall >= 0.75 and median matched
      trace correlation >= 0.85; 8b CNMFE with preset_2p("ar2_constrained")
-     and ("ar2_thresholded") on a simulated 256x256x2000 AR(2) movie, K1
+     and ("ar2_thresholded") on a simulated 256x256x1000 AR(2) movie (cut
+     from 2000 frames to make room for phase 13), K1
      launched and no ring kernel, g of width 2, recall >= 0.75, the
      constrained fit within the RSS budget, the AR(2) deconvolution's
-     seconds printed; 8c every deconvolution family on 192 traces of
-     8b's fit, on the card and on the CPU (c and s within 1e-4 of each
+     seconds printed; 8c every deconvolution family on 192 traces (T =
+     1000) of 8b's fit, on the card and on the CPU (c and s within 1e-4 of each
      trace's scale; MCEM and MCMC on the card, held to the planted
      traces), each family's median wall; 8d at 64x64x600 the spatial
      algorithms hals_thresh, nnls and lars and temporal.decorrelate on
@@ -116,8 +118,11 @@ Phases (each fails the script when its check fails):
      every footprint and trace at correlation >= 0.999 with phase 6's,
      A within 5e-4 and C within 5e-3 of their scale of phase 6's state,
      or 8x the drift of phase 6's fit rerun with smaller chunks (its sums
-     in another order) where that is larger; the wall, stage seconds and
-     peak memory of each rank printed.
+     in another order) where that is larger; the init, QC, merges and
+     tags on the mesh, no pickled state sent; the wall, stage seconds
+     (the init and QC stages beside the figures of the rank-0 QC that
+     pickled the state, PERF.md section 5) and peak memory of each rank
+     printed.
  11. the in-memory fit on the mesh: phase 4's movie and parameters through
      CNMFE(mesh=...).fit on a 2 x 2 mesh of gloo ranks sharing the card
      (a warm-up on a 64x64 movie first; each rank reads only its block):
@@ -152,7 +157,20 @@ Phases (each fails the script when its check fails):
      one process on the whole movie; no pickled state sent; 12' 12a and
      12b on a 1 x 1 NCCL mesh against mesh=None (bit-identical, or
      within 1e-6 of scale with the difference printed).
-No plain kernel version may run on the paths of phases 4 to 12, and
+ 13. batch mode on the mesh: phase 6b's problem (256x256x6000 in three
+     batches of 2000, preset_1p, K_max 192) through fit_batches(mesh=...)
+     on a 2 x 2 gloo mesh sharing the card (a warm-up on a 64x64 movie
+     first; each rank reads only its 1000 x 128 x 256 block of each
+     batch): F1 >= 0.8, n_active and the per-batch counts equal to 6b's,
+     every matched footprint and trace at correlation >= 0.999 with 6b's
+     state (or 8x 6b's own drift under a one-ulp change of Y where that
+     is larger, both printed), every rank's active mask and state the
+     same, no pickled state sent; K1, the OASIS solve entry and K6 on
+     every rank, no plain version; each rank's wall, stage seconds,
+     collective bytes and seconds and peak memory printed beside 6b's;
+     13' the same on a 1 x 1 NCCL mesh against mesh=None (bit-identical,
+     or within 1e-6 of scale with the difference printed).
+No plain kernel version may run on the paths of phases 4 to 13, and
 their OASIS kernels must launch through the solve entry.
 The line before the last holds one JSON object with the per-kernel
 results; the last line is {"ok": true, "device": {...}}.
@@ -1381,17 +1399,24 @@ def phase6_stream(tmp: str):
     return launches, (A, C, wall, stages)
 
 
+BATCH_T, N_BATCHES = 6000, 3
+
+
 def phase6b_batches():
     """fit_batches on the phase-4 movie at 6000 frames, in three batches of
-    2000 with the phase-4 parameters; F1 >= 0.8."""
-    gt, params = fit_problem(T=6000)
-    batches = np.split(gt.Y, 3)
+    2000 with the phase-4 parameters; F1 >= 0.8. Returns the launches and
+    phase 13's reference: the active neurons' A and C, the per-batch
+    counts, the wall, the peak and the stage seconds."""
+    gt, params = fit_problem(T=BATCH_T)
+    batches = np.split(gt.Y, N_BATCHES)
     fit_batches(batches[:2], params, device=DEV)              # warm-up
     torch.cuda.synchronize()
+    timer = StageTimer(DEV)
     torch.cuda.reset_peak_memory_stats(DEV)
     with main_path() as launches:
         t0 = time.perf_counter()
-        final, per_batch = fit_batches(batches, params, device=DEV)
+        final, per_batch = fit_batches(batches, params, device=DEV,
+                                       timer=timer)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(DEV)
@@ -1405,12 +1430,16 @@ def phase6b_batches():
           f"{int(act.sum())} (per batch "
           f"{[int(p.n_active()) for p in per_batch]}), F1 {f1['f1']:.4f} "
           f"(precision {f1['precision']:.4f}, recall {f1['recall']:.4f}), "
-          f"peak memory {peak / 2**30:.3f} GiB, finite {finite}, launches "
-          f"{json.dumps(launches)}", flush=True)
+          f"peak memory {peak / 2**30:.3f} GiB, finite {finite}, stage "
+          f"seconds {stage_line(timer)}, launches {json.dumps(launches)}",
+          flush=True)
     check_path(launches, PATH_EXACT, "batch")
     require(finite, "fit_batches gave non-finite values")
     require(f1["f1"] >= 0.8, f"batch F1 {f1['f1']:.4f} < 0.8")
-    return launches
+    n = int(act.sum())
+    return launches, dict(A=A, C=final.C.cpu().numpy()[act],
+                          per_batch=[int(p.n_active()) for p in per_batch],
+                          wall=wall, peak=peak, stages=dict(timer.times))
 
 
 def phase6c_stream_consistency(tmp: str):
@@ -1759,14 +1788,17 @@ def rss_budget(state, T: int, matches):
     return on, len(matches), proof
 
 
+AR2_T = 1000                # 8b's frames (2000 until phase 13 came)
+
+
 def phase8b_ar2():
     """BASELINE config 4: CNMFE(preset_2p("ar2_constrained")) and
-    CNMFE(preset_2p("ar2_thresholded")) on a simulated 256x256x2000 AR(2)
+    CNMFE(preset_2p("ar2_thresholded")) on a simulated 256x256xAR2_T AR(2)
     movie; K1 launched, no ring kernel, g of width 2 with some |g2| >
     1e-4, recall >= 0.75; the constrained fit holds the RSS budget.
     Returns (per-path launches, 192 traces of the constrained fit, the
     traces' ground truth rows)."""
-    Y_np, A_true, C_true, _ = ar2_movie()
+    Y_np, A_true, C_true, _ = ar2_movie(T=AR2_T)
     T = Y_np.shape[0]
     wY, _, _, _ = ar2_movie(H=64, W=64, T=600, K=8)
     Y = torch.as_tensor(Y_np, device=DEV)
@@ -1792,7 +1824,7 @@ def phase8b_ar2():
         finite = all(bool(torch.isfinite(getattr(state, k)).all())
                      for k in ("A", "C", "C_raw", "S", "g"))
         ar2 = timer.times.get("ar2_deconv", 0.0)
-        line = (f"phase 8b: CNMFE(preset_2p({preset!r})).fit 256x256x2000 "
+        line = (f"phase 8b: CNMFE(preset_2p({preset!r})).fit 256x256x{T} "
                 f"({A_true.shape[0]} planted, d=0.92, r=0.45), n_outer=1: "
                 f"wall {wall:.3f} s, n_active {n}, recall "
                 f"{f1['recall']:.4f} (precision {f1['precision']:.4f}), "
@@ -1854,7 +1886,7 @@ SAMPLER_BARS = {"mcem": 0.8, "mcmc": 0.6}
 
 
 def phase8c_deconv(traces, C_true):
-    """Every deconvolution family on 192 traces (T = 2000) of 8b's
+    """Every deconvolution family on 192 traces (T = AR2_T) of 8b's
     constrained fit, on the card and, for the deterministic families, on
     the CPU: c and s within 1e-4 of each trace's scale. mcem and mcmc on
     the card only, held to the planted traces (median correlation on the
@@ -1884,8 +1916,9 @@ def phase8c_deconv(traces, C_true):
         solves = cuda_build.ENTRY_CALLS.get("oasis_solve_launch", 0)
         c_g, s_g = res.c.cpu().numpy(), res.s.cpu().numpy()
         finite = bool(np.isfinite(c_g).all() and np.isfinite(s_g).all())
-        line = (f"phase 8c: deconvolve {name} on 192 x 2000 traces of 8b's "
-                f"fit: card median wall {statistics.median(times):.4f} s "
+        line = (f"phase 8c: deconvolve {name} on 192 x {y.shape[1]} traces "
+                f"of 8b's fit: card median wall "
+                f"{statistics.median(times):.4f} s "
                 f"({', '.join(f'{t:.4f}' for t in times)}), {solves} "
                 f"solve-entry calls a run, finite {finite}")
         require(finite, f"deconvolve {name} gave non-finite values")
@@ -2324,6 +2357,9 @@ def step_self_drift(Y, d, H, W, T, K, chain, kw) -> dict:
 
 # tests/test_streaming.py:331-337's tolerances, as shares of the scale
 STREAM_BARS = dict(A=5e-4, C=5e-3)
+# 10b's rank 0 by stage (s) when its init ran on rank 0 and its state was
+# pickled there and back around the QC and the tags (PERF.md section 5)
+PICKLED_QC = {"init": 2.049, "qc_merge": 1.223, "tags": 1.649}
 REORDER_CHUNK = 64 << 20    # f32 bytes a streamed chunk, in place of 256 MB
 
 
@@ -2492,6 +2528,16 @@ def phase10_mesh(tmp: str, step_outs: dict, step_ms: dict, stream_ref,
               f"peak memory {info['peak'] / 2**30:.3f} GiB", flush=True)
     print(f"phase 10b: phase 6's stage seconds {json.dumps(stages_s)}",
           flush=True)
+    split = [[round(i["stages"].get(k, 0.0), 4) for k in PICKLED_QC]
+             for i in infos]
+    print(f"phase 10b: init, qc_merge and tags on the mesh by rank (s): "
+          f"{split}; rank 0's when the init ran there and the state was "
+          f"pickled to it and back around the QC and the tags (PERF.md "
+          f"section 5): {list(PICKLED_QC.values())}; object "
+          f"collectives called per rank {[i['broadcasts'] for i in infos]}",
+          flush=True)
+    require(all(i["broadcasts"] == 0 for i in infos),
+            "mesh streaming: a pickled state was sent")
     require(f1["f1"] >= 0.9, f"mesh streaming F1 {f1['f1']:.4f} < 0.9")
     require(same_n, f"mesh streaming n_active {n} != phase 6's "
             f"{A_s.shape[0]}")
@@ -2620,10 +2666,12 @@ def mesh_lines(what, infos, ref_wall, ref_peak, path):
               f"{json.dumps(info['launches'])}", flush=True)
 
 
-def check_identity(what: str, pair: dict, path: set) -> dict:
+def check_identity(what: str, pair: dict, path: set,
+                   fit: str = "CNMFE.fit") -> dict:
     """Print and require: a fit on a 1 x 1 NCCL mesh against mesh=None
-    (``_selftest.card_fit_identity``'s pair), bit-identical or within
-    1e-6 of scale. Returns the mesh run's launches."""
+    (``_selftest.card_fit_identity``'s pair, or another such pair of
+    ``fit``), bit-identical or within 1e-6 of scale. Returns the mesh
+    run's launches."""
     mm, none = pair["mesh"], pair["none"]
     check_rank_path(mm, path, f"{what} NCCL mesh fit")
     same = all(np.array_equal(mm["state"][k], none["state"][k])
@@ -2632,7 +2680,7 @@ def check_identity(what: str, pair: dict, path: set) -> dict:
                             - none["state"][k]).max()
                      / max(float(np.abs(none["state"][k]).max()), 1e-30))
             for k in none["state"] if k != "active"}
-    print(f"phase {what}: CNMFE.fit on a 1 x 1 NCCL mesh against mesh=None, "
+    print(f"phase {what}: {fit} on a 1 x 1 NCCL mesh against mesh=None, "
           f"one process: bit-identical {same}, max abs difference / scale "
           f"{json.dumps(diff)}; wall {mm['wall']:.3f} s against "
           f"{none['wall']:.3f} s, {mm['comm']['calls']} collectives, "
@@ -2913,6 +2961,100 @@ def phase12_options_mesh(local_ref):
     return per_path
 
 
+# ------------------------------------------------------------------ #
+# phase 13: batch mode on the (patch, frame) mesh
+# ------------------------------------------------------------------ #
+def active_rows(st: dict) -> dict:
+    """A state's arrays with A and C cut to its active slots, in order
+    (``fit_batches`` does not compact its final state)."""
+    act = st["active"]
+    return dict(A=st["A"][act], C=st["C"][act],
+                active=np.ones(int(act.sum()), bool))
+
+
+def batch_self_drift(batches, params, ref) -> dict:
+    """How far phase 6b's fit_batches moves when Y moves by one ulp up and
+    down (np.nextafter): one less the least matched footprint and trace
+    correlation with ``ref``, and the neuron counts (fit_self_drift's
+    measure)."""
+    out = dict(A=0.0, C=0.0, n=[])
+    for to in (np.inf, -np.inf):
+        st, _ = fit_batches([np.nextafter(Yb, np.float32(to))
+                             for Yb in batches], params, device=DEV)
+        rows = active_rows(state_to_numpy(st))
+        out["n"].append(rows["A"].shape[0])
+        c = matched_corr(rows["A"], rows["C"], ref["A"], ref["C"])
+        out = dict(out, A=max(out["A"], 1 - c["A"]),
+                   C=max(out["C"], 1 - c["C"]))
+    return out
+
+
+def phase13_batch_mesh(tmp: str, ref: dict):
+    """fit_batches(mesh=...) of phase 6b's problem on a 2 x 2 mesh of gloo
+    ranks sharing the card (13), then on a 1 x 1 NCCL mesh against
+    mesh=None (13'). ``ref``: phase 6b's. Returns the launches of each
+    counted run, summed over its ranks."""
+    gt, params = fit_problem(T=BATCH_T)
+    self_drift = batch_self_drift(np.split(gt.Y, N_BATCHES), params, ref)
+    torch.cuda.empty_cache()
+    y_path = os.path.join(tmp, "batch_Y.npy")
+    warm_path = os.path.join(tmp, "batch_warm.npy")
+    np.save(y_path, gt.Y)
+    np.save(warm_path, simulate_movie(
+        seed=3, H=64, W=64, T=1200, K=8, gSig=3.0, sn=0.1, bg_strength=1.0,
+        min_dist=9.0, spike_rate=0.02).Y)
+    pd = dataclasses.asdict(params)
+    card = torch.cuda.get_device_name(0)
+    per_path = {}
+
+    # 13: the 2 x 2 gloo mesh against phase 6b's one-process run
+    t0 = time.perf_counter()
+    infos = launch.spawn(_selftest.card_batch, 2, 2, backend="gloo",
+                         device="cuda",
+                         args=(y_path, warm_path, pd, N_BATCHES),
+                         timeout=MESH_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    mesh_lines("13", infos, ref["wall"], ref["peak"], PATH_EXACT)
+    same = all(i["digest"] == infos[0]["digest"] for i in infos)
+    counts = [i["per_batch"] for i in infos]
+    res = hold_to_one_process("13", active_rows(infos[0]["state"]), ref,
+                              self_drift, gt, "f1", 0.8)
+    print(f"phase 13: fit_batches(mesh=...) preset_1p "
+          f"256x256x{BATCH_T} in {N_BATCHES} batches, K_max=192, on a "
+          f"2 x 2 gloo mesh, 4 ranks on {card}, blocks "
+          f"{[i['block'] for i in infos]}: n_active {res['n']} (6b: "
+          f"{ref['A'].shape[0]}), per batch {counts} (6b: "
+          f"{ref['per_batch']}), F1 {res['score']['f1']:.4f} (precision "
+          f"{res['score']['precision']:.4f}, recall "
+          f"{res['score']['recall']:.4f}); against 6b's state the least "
+          f"matched footprint correlation {res['corr']['A']:.6f}, trace "
+          f"{res['corr']['C']:.6f}; 6b's one-ulp self-drift {self_drift}; "
+          f"bars {res['bar']}; every rank's state bit-identical {same}; "
+          f"spawn and both runs {spawn_s:.1f} s", flush=True)
+    print(f"phase 13: phase 6b's stage seconds (one process) "
+          f"{json.dumps({k: round(v, 4) for k, v in ref['stages'].items()})}",
+          flush=True)
+    require(same, "13: the ranks' states differ")
+    require(all(c == ref["per_batch"] for c in counts),
+            f"13: per-batch counts {counts} != 6b's {ref['per_batch']}")
+    per_path["batch_mesh"] = summed_launches(infos)
+
+    # 13': one NCCL rank, the mesh run against mesh=None
+    t0 = time.perf_counter()
+    one = launch.spawn(_selftest.card_batch_identity, 1, 1, backend="nccl",
+                       device="cuda",
+                       args=(y_path, warm_path, pd, N_BATCHES),
+                       timeout=MESH_TIMEOUT)[0]
+    per_path["batch_mesh_nccl"] = check_identity("13'", one, PATH_EXACT,
+                                                  "fit_batches")
+    require(one["mesh"]["per_batch"] == one["none"]["per_batch"],
+            f"13': per-batch counts {one['mesh']['per_batch']} != "
+            f"{one['none']['per_batch']}")
+    print(f"phase 13': spawn and the runs {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return per_path
+
+
 def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2959,19 +3101,21 @@ def main():
     timed_phase("5b", phase5b_consistency)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         per_path["stream"], stream_ref = timed_phase("6", phase6_stream, tmp)
-        per_path["batch"] = timed_phase("6b", phase6b_batches)
+        per_path["batch"], batch_ref = timed_phase("6b", phase6b_batches)
         timed_phase("6c", phase6c_stream_consistency, tmp)
         per_path.update(timed_phase("7", phase7_cli, tmp))
         per_path.update(timed_phase("10", phase10_mesh, tmp, step_outs,
                                     step_ms, stream_ref))
         per_path.update(timed_phase("11", phase11_fit_mesh, tmp, fit_ref))
+        per_path.update(timed_phase("13", phase13_batch_mesh, tmp,
+                                    batch_ref))
     per_path.update(timed_phase("8", phase8_2p))
     per_path["local_ellipse"], local_ref = timed_phase("9", phase9_local)
     per_path.update(timed_phase("12", phase12_options_mesh, local_ref))
     print(f"phase seconds: {json.dumps(seconds)}", flush=True)
 
-    # launches: the sum over the main-path runs of phases 4 to 12 (phases
-    # 10 to 12 summed over their ranks)
+    # launches: the sum over the main-path runs of phases 4 to 13 (phases
+    # 10 to 13 summed over their ranks)
     launches = {k: sum(p[k] for p in per_path.values())
                 for k in cuda_build.KERNELS}
     print(f"launches per main-path run: {json.dumps(per_path)}", flush=True)

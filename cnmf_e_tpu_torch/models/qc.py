@@ -30,23 +30,39 @@ TAG_ZERO_RESIDUAL = 4
 TAG_LOW_PNR = 8
 
 
-def tag_neurons(state: CNMFEState, params: CNMFEParams,
-                mesh=None) -> CNMFEState:
-    qc = params.qc
+def row_batches(K: int, rows: int):
+    """Near-equal slices of range(K), each at most ``rows`` long."""
+    Kb = -(-K // max(-(-K // max(rows, 1)), 1))
+    return [slice(k0, min(k0 + Kb, K)) for k0 in range(0, K, Kb)]
+
+
+def _trace_tags(S, C_raw, C, qc) -> torch.Tensor:
+    """The trace defects of whole traces, one tag word a row."""
     i32 = torch.int32
+    n_spikes = (S[:, 1:] > 0).sum(dim=-1)
+    t = (n_spikes < qc.min_spike_count).to(i32) * TAG_NO_SPIKES
+    resid_std = (C_raw - C).std(dim=-1, unbiased=False)
+    raw_sn = noise_psd(C_raw)
+    t = t + (resid_std / torch.clamp(raw_sn, min=1e-12) < 0.1
+             ).to(i32) * TAG_ZERO_RESIDUAL
+    pnr = C.amax(dim=-1) / torch.clamp(resid_std, min=1e-12)
+    return t + (pnr < qc.min_pnr).to(i32) * TAG_LOW_PNR
+
+
+def tag_neurons(state: CNMFEState, params: CNMFEParams,
+                mesh=None, rows=None) -> CNMFEState:
+    """Each neuron's defect tags (0 for an inactive slot). ``rows``: the
+    trace statistics run on at most that many whole traces at a time
+    (rows are independent; the Welch PSD frames a long C_raw)."""
+    qc = params.qc
     npix = comm.psum((state.A > 0).sum(dim=(1, 2)), mesh, "patch")
-    tags = (npix < qc.min_pixel).to(i32) * TAG_FEW_PIXELS
+    tags = (npix < qc.min_pixel).to(torch.int32) * TAG_FEW_PIXELS
     if params.temporal.deconv.enabled:
         S, C_raw, C = (comm.traces_to_neurons(x, mesh)
                        for x in (state.S, state.C_raw, state.C))
-        n_spikes = (S[:, 1:] > 0).sum(dim=-1)
-        t = (n_spikes < qc.min_spike_count).to(i32) * TAG_NO_SPIKES
-        resid_std = (C_raw - C).std(dim=-1, unbiased=False)
-        raw_sn = noise_psd(C_raw)
-        t = t + (resid_std / torch.clamp(raw_sn, min=1e-12) < 0.1
-                 ).to(i32) * TAG_ZERO_RESIDUAL
-        pnr = C.amax(dim=-1) / torch.clamp(resid_std, min=1e-12)
-        t = t + (pnr < qc.min_pnr).to(i32) * TAG_LOW_PNR
+        n = S.shape[0]
+        t = torch.cat([_trace_tags(S[sl], C_raw[sl], C[sl], qc)
+                       for sl in row_batches(n, rows or n)])
         if mesh is not None:
             t = comm.all_gather_cat(t, 0, mesh.patch_group)
         tags = tags + t

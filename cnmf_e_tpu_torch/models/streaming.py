@@ -39,16 +39,14 @@ import numpy as np
 import torch
 
 from cnmf_e_tpu_torch.config import CNMFEParams
-from cnmf_e_tpu_torch.convert import (gather_state, state_blocks,
-                                      state_from_numpy, state_to_numpy)
+from cnmf_e_tpu_torch.convert import gather_state, state_blocks
 from cnmf_e_tpu_torch.io.store import MovieStore
 from cnmf_e_tpu_torch.models.initialize import initialize_greedy
 from cnmf_e_tpu_torch.models.merge import merge_neurons
-from cnmf_e_tpu_torch.models.qc import (_apply_keep, remove_false_positives,
-                                        tag_neurons)
+from cnmf_e_tpu_torch.models.qc import _apply_keep, row_batches, tag_neurons
 from cnmf_e_tpu_torch.models.state import (CNMFEState, RingWeights, compact,
                                            empty_state)
-from cnmf_e_tpu_torch.ops.filters import spatial_upsample
+from cnmf_e_tpu_torch.ops.filters import resize_linear
 from cnmf_e_tpu_torch.ops.hals import (hals_spatial_sweeps_rows,
                                        hals_temporal_sweeps)
 from cnmf_e_tpu_torch.ops.noise import noise_psd_frames
@@ -58,7 +56,8 @@ from cnmf_e_tpu_torch.ops.ring import (apply_ring, fit_ring_weights_mesh,
 from cnmf_e_tpu_torch.ops.ring_kernels import ring_offsets
 from cnmf_e_tpu_torch.ops.stats import submedian_mean
 from cnmf_e_tpu_torch.parallel import comm
-from cnmf_e_tpu_torch.parallel.mesh import check_divisible, gather_image
+from cnmf_e_tpu_torch.parallel.mesh import (check_divisible,
+                                            gather_footprints, gather_image)
 from cnmf_e_tpu_torch.utils.profiling import timed
 
 # Chunked branches. Each is exact by construction (columns, pixels and
@@ -73,12 +72,6 @@ QC_ROWS = 640          # neurons per QC batch past T_CHUNK
 DECONV_BYTES = 256 << 20   # f32 trace bytes per deconvolution batch ...
 DECONV_ALIGN = 64          # ... in multiples of this many neurons
 CHUNK_BYTES = 256 << 20    # f32 frame bytes per streamed chunk
-
-
-def _row_batches(K: int, rows: int):
-    """Near-equal slices of range(K), each at most ``rows`` long."""
-    Kb = -(-K // max(-(-K // max(rows, 1)), 1))
-    return [slice(k0, min(k0 + Kb, K)) for k0 in range(0, K, Kb)]
 
 
 # ------------------------------------------------------------------ #
@@ -276,10 +269,17 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
     block ring subtraction and the ring fit take the ring's halo rows from
     the patch neighbours, the ring fit gathers its strided rows over
     'frame', and the baseline and deconvolution run on whole traces, K /
-    n_patch of them a patch rank. The init, QC and merges run on rank 0
-    on the gathered state, which goes to every rank (GSPMD leaves them
-    unsharded too); rank 0 writes the snapshots and computes the pixel
-    noise. H, T and K_max must divide over their axes."""
+    n_patch of them a patch rank. The init runs on the mesh on the
+    proxy's blocks: each rank reads its rows and its even share of the
+    proxy's frames (the same stride-tsub frames as one process) from the
+    store, which every rank can read. The QC, the merges and the tags run
+    on the mesh on the rank's blocks, as ``CNMFE(mesh=...).fit`` runs
+    them, and the state is gathered at the end; no state is pickled.
+    Rank 0 writes the snapshots (from gathered states) and computes the
+    pixel noise. H, T and K_max must divide over their axes, the proxy's
+    frames over 'frame' (``init_budget_frames`` sets them) and H /
+    n_patch by ``init.ssub``; a ValueError names the one that does not,
+    before any work."""
     params = params or CNMFEParams.preset_1p()
     device = torch.device(device)
     T, H, W = store.shape
@@ -313,21 +313,6 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
 
     def gathered(st: CNMFEState) -> CNMFEState:
         return st if mesh is None else gather_state(st, mesh)
-
-    def on_lead(fn, st: CNMFEState, whole: bool = False):
-        """``fn(full state) -> (full state, extra)`` on rank 0 only; every
-        rank gets the result (its blocks, or the whole with ``whole``)
-        and ``extra``."""
-        if mesh is None:
-            return fn(st)
-        full = gathered(st)
-        out = None
-        if lead:
-            res, extra = fn(full)
-            out = (state_to_numpy(res), extra)
-        d, extra = comm.broadcast_object(out, mesh)
-        res = state_from_numpy(d, device)
-        return (res if whole else blocks_of(res)), extra
 
     # ---- init on a decimated proxy movie, or resume ------------------
     state = None
@@ -370,24 +355,26 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
                         torch.nn.functional.pad(Cj[:, :-2], (2, 0))
                 state = state.replace(C=Cj, C_raw=tensor(z["C_raw"]),
                                       S=torch.clamp(s_rec, min=0.0))
+            state = blocks_of(state)
         log(lambda state=state: f"resumed {int(state.n_active())} neurons "
             f"from {snapshot_path} (stage {stage_str or '?'}"
             f"{', mid-iteration' if resume_mid else ''})")
     if state is None:
+        tsub = max(-(-T // init_budget_frames), 1)
+        ssub = max(int(params.init.ssub), 1)
+        _check_proxy(mesh, T, H, tsub, ssub, init_budget_frames,
+                     params.init.max_neurons)
         with timed(timer, "init"):
-            tsub = max(-(-T // init_budget_frames), 1)
-            ssub = max(int(params.init.ssub), 1)
-            if lead:
-                state = _init_proxy(store, params, tsub, ssub, device,
-                                    verbose)
-            if mesh is not None:
-                d = comm.broadcast_object(
-                    state_to_numpy(state) if lead else None, mesh)
-                state = state_from_numpy(d, device)
+            state = _init_proxy(store, params, tsub, ssub, device, verbose,
+                                mesh)
         log(lambda state=state: f"init (tsub={tsub}, ssub={ssub}): "
             f"{int(state.n_active())} neurons")
-        if snapshot_path is not None and lead:
-            _save_snapshot(snapshot_path, "init", state, traces=False)
+        if snapshot_path is not None:
+            A_init = state.A if mesh is None else gather_footprints(state.A,
+                                                                    mesh)
+            if lead:
+                _save_snapshot(snapshot_path, "init", state,
+                               A=_np(A_init, np.float16), traces=False)
             log(f"init snapshot -> {snapshot_path}")
 
     # traces expand to full T at the first temporal solve; until then
@@ -397,7 +384,6 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
     if not resume_mid:
         z1 = torch.zeros((K_cap, 1), device=device)
         state = state.replace(C=z1, C_raw=z1, S=z1)
-    state = blocks_of(state)
     k0, k1 = (0, K_cap) if mesh is None else mesh.neurons(K_cap)
 
     # ---- pixel noise, cached in the store (the first noise_frame_cap
@@ -551,7 +537,7 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
                 C_new = torch.empty_like(C_raw)
                 Cr_new = torch.empty_like(C_raw)
                 S_new = torch.empty_like(C_raw)
-                for sl in _row_batches(k1 - k0, rows):
+                for sl in row_batches(k1 - k0, rows):
                     Cb = C_raw[sl]
                     Cb = Cb - submedian_mean(Cb, dim=-1)[:, None]
                     res = deconvolve(Cb, params.temporal.deconv)
@@ -635,19 +621,21 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
                                    Ymean=_np(Ym, np.float32))
                 log(f"iter {it}: spatial snapshot -> {snapshot_path}")
 
-        def qc_merge(st):
-            st = _quality_control(st, params, T, deactivate=True)
+        with timed(timer, "qc_merge"):
+            state = _quality_control(state, params, T, deactivate=True,
+                                     mesh=mesh)
             # deconv=False: non-final iterations are re-deconvolved by the
             # next temporal pass; on the final one the merged clusters
             # keep their rank-1 refit traces
-            st, nm = merge_neurons(st, params, "dist_corr", deconv=False)
-            st, nm2 = merge_neurons(st, params, "dist_only", deconv=False)
-            if snapshot_path is not None:
-                _save_snapshot(snapshot_path, f"iter{it}", st)
-            return st, (int(nm), int(nm2))
-
-        with timed(timer, "qc_merge"):
-            state, (nm, nm2) = on_lead(qc_merge, state)
+            state, nm = merge_neurons(state, params, "dist_corr",
+                                      deconv=False, mesh=mesh)
+            state, nm2 = merge_neurons(state, params, "dist_only",
+                                       deconv=False, mesh=mesh)
+            nm, nm2 = int(nm), int(nm2)
+        if snapshot_path is not None:
+            full = gathered(state)
+            if lead:
+                _save_snapshot(snapshot_path, f"iter{it}", full)
         log(lambda nm=nm, nm2=nm2, state=state:
             f"iter {it}: QC + merges ({nm}+{nm2}), "
             f"{int(state.n_active())} neurons")
@@ -655,8 +643,11 @@ def fit_streaming(store: MovieStore, params: Optional[CNMFEParams] = None,
             log(f"iter {it}: snapshot -> {snapshot_path}")
 
     with timed(timer, "tags"):
-        state, _ = on_lead(lambda st: (compact(_quality_control(
-            st, params, T, deactivate=False)), None), state, whole=True)
+        state = compact(_quality_control(state, params, T, deactivate=False,
+                                         mesh=mesh))
+    if mesh is not None:
+        with timed(timer, "gather"):
+            state = gather_state(state, mesh)
     if timer is not None and spans:
         torch.cuda.synchronize(device)
         timer.add("upload", sum(a.elapsed_time(b) for a, b, _ in spans)
@@ -669,56 +660,90 @@ def _pixel_rows(w: RingWeights, p0: int, p1: int) -> RingWeights:
     return RingWeights(w=w.w[p0:p1].contiguous(), w0=w.w0[p0:p1].contiguous())
 
 
+def _check_proxy(mesh, T: int, H: int, tsub: int, ssub: int,
+                 budget: int, K_max: int) -> None:
+    """The mesh init's guards, alike on every rank and before any work: a
+    ValueError where the proxy's frames do not divide over 'frame', where
+    a rank's rows do not pool alone (H / n_patch not a multiple of
+    ``init.ssub``), or where K_max does not divide over 'patch'."""
+    if mesh is None:
+        return
+    P = len(range(0, T, tsub))
+    if P % mesh.n_frame:
+        raise ValueError(
+            f"the init proxy's {P} frames (T = {T} at tsub = {tsub}, set "
+            f"by init_budget_frames = {budget}) are not divisible by the "
+            f"{mesh.n_frame} ranks of the 'frame' axis")
+    Hl = H // mesh.n_patch
+    if Hl % ssub:
+        raise ValueError(f"H / n_patch = {Hl} is not a multiple of "
+                         f"init.ssub = {ssub}")
+    check_divisible(mesh, K=K_max)
+
+
 def _init_proxy(store: MovieStore, params: CNMFEParams, tsub: int,
-                ssub: int, device, verbose: bool) -> CNMFEState:
-    """The greedy init on a proxy movie decimated tsub-fold in time and
-    pooled ssub-fold in space, built block by block on the host (bounded
-    RAM; the pool cuts the upload by ssub^2); footprints back at full
-    resolution, T = 1 traces (they are rebuilt at full T)."""
+                ssub: int, device, verbose: bool, mesh=None) -> CNMFEState:
+    """The greedy init on a proxy movie decimated tsub-fold in time (the
+    stride-tsub frames 0, tsub, 2 tsub, ...) and pooled ssub-fold in
+    space, built block by block on the host (bounded RAM; the pool cuts
+    the upload by ssub^2); footprints back at full resolution, T = 1
+    traces (they are rebuilt at full T).
+
+    ``mesh``: each rank reads from the store only its block of the
+    proxy, its pooled rows and its even share of the proxy's frames, runs
+    ``initialize_greedy(mesh=...)`` on it and resizes its footprints back
+    on its own rows; the state returned is its blocks."""
     T, H, W = store.shape
     Hs, Ws = H // ssub, W // ssub
+    P = len(range(0, T, tsub))
+    j0, j1 = (0, P) if mesh is None else mesh.frames(P)
+    c0, c1 = (0, Hs) if mesh is None else mesh.rows(Hs)
+    fpb = store.frames_per_block
     parts = []
-    offset = 0
-    for Yb in store.iter_blocks_raw():
-        sl = np.asarray(Yb)[(-offset) % tsub::tsub].astype(np.float32)
+    for i in range(store.n_blocks()):
+        b0, b1 = i * fpb, min((i + 1) * fpb, T)
+        # this block's grid frames j tsub, j in [j0, j1)
+        lo = max(-(-b0 // tsub), j0) * tsub
+        hi = min(b1, (j1 - 1) * tsub + 1)
+        if hi <= lo:
+            continue
+        sl = np.asarray(store.read_block(i)[
+            lo - b0:hi - b0:tsub, c0 * ssub:c1 * ssub, :Ws * ssub]
+        ).astype(np.float32)
         if ssub > 1:
-            sl = sl[:, :Hs * ssub, :Ws * ssub].reshape(
-                sl.shape[0], Hs, ssub, Ws, ssub).mean(axis=(2, 4))
+            sl = sl.reshape(sl.shape[0], c1 - c0, ssub, Ws, ssub).mean(
+                axis=(2, 4))
         parts.append(sl)
-        offset += Yb.shape[0]
     Y_proxy = torch.as_tensor(np.concatenate(parts, axis=0), device=device)
     del parts
     ip_init = dataclasses.replace(
         params.init, tsub=1, ssub=1, gSig=max(params.init.gSig / ssub, 0.0),
         gSiz=max(int(params.init.gSiz // ssub), 3))
     state, _ = initialize_greedy(Y_proxy, params.replace(init=ip_init),
-                                 verbose=verbose)
+                                 verbose=verbose, mesh=mesh)
     del Y_proxy
     if ssub > 1:
-        # footprints back to full resolution; traces are rebuilt at full
-        # T, so only A, active, g and sn carry
-        state = empty_state(state.K_max, H, W, 1, p=state.g.shape[1],
+        # footprints back to full resolution (under a mesh the rank's
+        # rows, with the resize's halo row from its neighbours); traces
+        # are rebuilt at full T, so only A, active, g and sn carry
+        Hl = H if mesh is None else (c1 - c0) * ssub
+        state = empty_state(state.K_max, Hl, W, 1, p=state.g.shape[1],
                             device=device).replace(
-            A=spatial_upsample(state.A, ssub, (H, W))
+            A=resize_linear(state.A, (Hl, W), mesh)
             * state.active[:, None, None],
             active=state.active, g=state.g, neuron_sn=state.neuron_sn)
     return state
 
 
 def _quality_control(state: CNMFEState, params: CNMFEParams, T: int,
-                     deactivate: bool) -> CNMFEState:
+                     deactivate: bool, mesh=None) -> CNMFEState:
     """Tag the neurons (and, with ``deactivate``, drop the tagged ones),
-    in batches of at most QC_ROWS neurons past T_CHUNK frames: the tags'
-    Welch PSD frames the whole (K, T) C_raw, and rows are independent."""
-    if T <= T_CHUNK:
-        return (remove_false_positives(state, params) if deactivate
-                else tag_neurons(state, params))
-    tags = torch.cat([tag_neurons(state.replace(
-        A=state.A[sl], C=state.C[sl], C_raw=state.C_raw[sl], S=state.S[sl],
-        active=state.active[sl], g=state.g[sl],
-        neuron_sn=state.neuron_sn[sl], tags=state.tags[sl]), params).tags
-        for sl in _row_batches(state.K_max, QC_ROWS)])
-    state = state.replace(tags=tags)
+    in batches of at most QC_ROWS whole traces past T_CHUNK frames: the
+    tags' Welch PSD frames the whole (K, T) C_raw, and rows are
+    independent. ``mesh``: the state is this rank's blocks, and the
+    batches split the rank's K / n_patch whole traces."""
+    state = tag_neurons(state, params, mesh,
+                        rows=QC_ROWS if T > T_CHUNK else None)
     if not deactivate:
         return state
-    return _apply_keep(state, state.active & ~((tags != 0) & state.active))
+    return _apply_keep(state, state.active & (state.tags == 0))

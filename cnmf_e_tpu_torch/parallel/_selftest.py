@@ -1,6 +1,6 @@
 """Rank bodies for :func:`cnmf_e_tpu_torch.parallel.launch.spawn`: the
 mesh cases that ``tests/test_torch_mesh*.py`` hold to the JAX package on
-the CPU and ``chip_smoke.py`` phases 10 to 12 run on the card.
+the CPU and ``chip_smoke.py`` phases 10 to 13 run on the card.
 
 Each body takes the rank's :class:`~cnmf_e_tpu_torch.parallel.mesh.Mesh`
 first and full numpy inputs after it, cuts its own blocks, runs the
@@ -17,6 +17,7 @@ import dataclasses
 import glob
 import hashlib
 import os
+import re
 import time
 
 import numpy as np
@@ -32,13 +33,17 @@ from cnmf_e_tpu_torch.convert import (gather_state, gather_step_state,
 from cnmf_e_tpu_torch.io.store import MovieStore
 from cnmf_e_tpu_torch.models.background import (background_of,
                                                 update_background)
-from cnmf_e_tpu_torch.models.batch import fit_batches
+from cnmf_e_tpu_torch.models.batch import (centroids, concat_traces,
+                                           fit_batches, init_traces_given_A,
+                                           residual_pick_batch,
+                                           sync_footprints)
 from cnmf_e_tpu_torch.models.initialize import initialize_greedy
 from cnmf_e_tpu_torch.models.merge import merge_neurons, merge_neurons_seq
 from cnmf_e_tpu_torch.models.pipeline import CNMFE
 from cnmf_e_tpu_torch.models.qc import remove_false_positives
 from cnmf_e_tpu_torch.models.spatial import update_spatial
 from cnmf_e_tpu_torch.models.state import RingWeights
+from cnmf_e_tpu_torch.models import streaming
 from cnmf_e_tpu_torch.models.streaming import fit_streaming
 from cnmf_e_tpu_torch.models.temporal import update_temporal
 from cnmf_e_tpu_torch.ops import hals_kernels, oasis_kernels, ring_kernels
@@ -163,12 +168,118 @@ def ingest_case(mesh, root, K, radius):
                 C=gather_step_state(out, mesh)["C"])
 
 
-def stream_case(mesh, root, params, kw):
+def stream_case(mesh, root, params, kw, chunks=None):
     """``fit_streaming(mesh=...)`` of the store at ``root`` with the
-    params dict ``params``: the full result state (numpy) on rank 0."""
-    state = fit_streaming(MovieStore(root), params_from_dict(params),
-                          device=mesh.device, mesh=mesh, **kw)
-    return state_to_numpy(state) if mesh.rank == 0 else None
+    params dict ``params``: the full result state (numpy) on rank 0, and
+    the calls of torch.distributed's object collectives on every rank.
+    ``chunks``: values of ``streaming``'s chunk constants (such as
+    T_CHUNK, QC_ROWS) for this run alone."""
+    chunks = chunks or {}
+    saved = {k: getattr(streaming, k) for k in chunks}
+    for k, v in chunks.items():
+        setattr(streaming, k, v)
+    try:
+        with count_broadcasts() as calls:
+            state = fit_streaming(MovieStore(root), params_from_dict(params),
+                                  device=mesh.device, mesh=mesh, **kw)
+    finally:
+        for k, v in saved.items():
+            setattr(streaming, k, v)
+    return dict(state=state_to_numpy(state) if mesh.rank == 0 else None,
+                broadcasts=calls[0])
+
+
+def stream_guard_cases(mesh, root, params, cases):
+    """The ValueError message (or None) of ``fit_streaming(mesh=...)``
+    with each ``(name, params fields, fit keywords)`` in ``cases``."""
+    out = {}
+    for name, fields, kw in cases:
+        try:
+            fit_streaming(MovieStore(root), with_fields(
+                params_from_dict(params), fields), device=mesh.device,
+                mesh=mesh, **kw)
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+# ------------------------------------------------------------------ #
+# batch mode on the mesh (tests/test_torch_mesh_batch.py, chip_smoke.py
+# phase 13): each rank its block of every batch
+# ------------------------------------------------------------------ #
+def _batch_blocks(batches, mesh):
+    return [shard_movie(np.asarray(Yb, np.float32), mesh) for Yb in batches]
+
+
+def snapshot_stages(run_dir) -> list:
+    """The stage names of a run log's snapshots, in the order written."""
+    return [re.sub(r"^snapshot_\d+_(.*)_\d{6}\.npz$", r"\1",
+                   os.path.basename(f))
+            for f in sorted(glob.glob(os.path.join(run_dir,
+                                                   "snapshot_*.npz")))]
+
+
+def batch_case(mesh, batches, params, workdir):
+    """``fit_batches(mesh=...)`` of the full batches, with a run log that
+    rank 0 writes under ``workdir``: the full final state on rank 0,
+    every rank's digest of it, the per-batch neuron counts, the calls of
+    torch.distributed's object collectives and (rank 0) the snapshots'
+    stages."""
+    log = RunLog(workdir, run_name="batch") if mesh.rank == 0 else None
+    with count_broadcasts() as calls:
+        final, per = fit_batches(_batch_blocks(batches, mesh),
+                                 params_from_dict(params), mesh=mesh,
+                                 run_log=log)
+    dist.barrier()
+    d = state_to_numpy(final)
+    return dict(state=d if mesh.rank == 0 else None, digest=digest(d),
+                per_batch=[int(st.n_active()) for st in per],
+                broadcasts=calls[0],
+                snaps=snapshot_stages(log.dir) if log is not None else None)
+
+
+def batch_stage_cases(mesh, Y, d, Y_late, d_late, batches, states,
+                      params):
+    """Each stage of ``fit_batches`` alone on the mesh, from full inputs:
+    ``init_traces_given_A`` of the movie ``Y`` with the state ``d`` (the
+    full traces, g and active mask); ``residual_pick_batch`` of
+    ``Y_late`` with ``d_late`` (the full active mask and A, and the
+    centroids of the mesh); ``sync_footprints`` of the per-batch full
+    states ``states`` over ``batches`` (the full A); ``concat_traces``
+    of ``states`` (this rank's own frames of the session)."""
+    p = params_from_dict(params)
+    st = _full(init_traces_given_A(shard_movie(np.asarray(Y, np.float32),
+                                               mesh),
+                                   shard_state(d, mesh), p, mesh), mesh)
+    out = dict(init={k: st[k] for k in ("C", "C_raw", "S", "g",
+                                        "active")})
+    st = residual_pick_batch(shard_movie(np.asarray(Y_late, np.float32),
+                                         mesh),
+                             shard_state(d_late, mesh), p, mesh=mesh)
+    full = _full(st, mesh)
+    out["pick"] = dict(active=full["active"], A=full["A"],
+                       centroids=np.stack(centroids(st.A, mesh)))
+    per = [shard_state(x, mesh) for x in states]
+    out["sync"] = gather_footprints(sync_footprints(
+        per, _batch_blocks(batches, mesh), p, mesh), mesh).cpu().numpy()
+    out["concat"] = {k: concat_traces(per, k, mesh).cpu().numpy()
+                     for k in ("C", "C_raw", "S")}
+    return out
+
+
+def batch_guard_case(mesh, batches, params):
+    """``fit_batches(mesh=...)`` where batch 2's frames do not divide over
+    'frame' (the last frame rank's block one frame short): the
+    ValueError's message, or None."""
+    blocks = _batch_blocks(batches, mesh)
+    if mesh.f == mesh.n_frame - 1:
+        blocks[1] = blocks[1][:-1]
+    try:
+        fit_batches(blocks, params_from_dict(params), mesh=mesh)
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 # ------------------------------------------------------------------ #
@@ -294,7 +405,8 @@ def fit_guard_cases(mesh, Y, params, variants, workdir):
     """Each option and method of ``CNMFE`` on the mesh, and the exception
     each invalid call raises. ``variants`` maps a name to a dict of params
     fields to replace (dotted names), or to one of "run_log",
-    "resume_from" (the run_log case's init snapshot), "fit_batches",
+    "resume_from" (the run_log case's init snapshot), "fit_batches" (the
+    movie's halves as two batches),
     "dff", "background", "reconstruction", "residual", "compute_rss" (on
     a fitted base model), "other_device", "unequal_blocks". By name:
     ("ok", digest, checks) where it runs (the digest of the full state
@@ -333,8 +445,15 @@ def fit_guard_cases(mesh, Y, params, variants, workdir):
             return state_to_numpy(CNMFE(base, mesh=mesh).fit(
                 Yl, n_outer=1, resume_from=snap)), {}
         if what == "fit_batches":
-            fit_batches([Yl], base, mesh=mesh)
-        elif what == "other_device":
+            # the two halves of the movie as batches, this rank's block of
+            # each
+            T = Y.shape[0]
+            st, per = fit_batches([shard_movie(np.asarray(
+                Yb, np.float32), mesh) for Yb in (Y[:T // 2], Y[T // 2:])],
+                base, mesh=mesh)
+            return (dict(state_to_numpy(st), per_batch=np.array(
+                [int(x.n_active()) for x in per])), {})
+        if what == "other_device":
             CNMFE(base, device="meta", mesh=mesh)
         elif what == "unequal_blocks":
             CNMFE(base, mesh=mesh).fit(Yl[:Yl.shape[0] - mesh.f])
@@ -562,23 +681,31 @@ class count_references:
             setattr(mod, name, fn)
 
 
+# torch.distributed's collectives of picklable objects: the ways a rank
+# could send pickled state (no path of the port may call them)
+OBJECT_COLLECTIVES = ("broadcast_object_list", "all_gather_object",
+                      "gather_object", "scatter_object_list",
+                      "send_object_list", "recv_object_list")
+
+
 class count_broadcasts:
-    """Counts the calls of ``comm.broadcast_object`` (the pickled state
-    that ``fit_streaming(mesh=...)`` sends around; the in-memory fit on a
-    mesh must make none) while active."""
+    """Counts the calls of torch.distributed's object collectives (pickled
+    state sent between ranks; no mesh path may make one) while active."""
 
     def __enter__(self):
         self.calls = [0]
-        self.saved = comm.broadcast_object
-
-        def counted(*a, **kw):
-            self.calls[0] += 1
-            return self.saved(*a, **kw)
-        comm.broadcast_object = counted
+        self.saved = [(name, getattr(dist, name))
+                      for name in OBJECT_COLLECTIVES if hasattr(dist, name)]
+        for name, fn in self.saved:
+            def counted(*a, _fn=fn, **kw):
+                self.calls[0] += 1
+                return _fn(*a, **kw)
+            setattr(dist, name, counted)
         return self.calls
 
     def __exit__(self, *exc):
-        comm.broadcast_object = self.saved
+        for name, fn in self.saved:
+            setattr(dist, name, fn)
 
 
 def _path_run(mesh, fn):
@@ -661,8 +788,8 @@ def card_ingest(mesh, root):
 def card_stream(mesh, root, warm_root, params, kw):
     """``fit_streaming(mesh=...)`` on the card: a warm-up on the store at
     ``warm_root``, then the counted and timed fit of the store at
-    ``root`` with a StageTimer and this rank's peak memory; the full
-    state on rank 0."""
+    ``root`` with a StageTimer and this rank's peak memory; the calls of
+    object collectives; the full state on rank 0."""
     p = params_from_dict(params)
     fit_streaming(MovieStore(warm_root), p, device=mesh.device, mesh=mesh,
                   **kw)
@@ -670,10 +797,11 @@ def card_stream(mesh, root, warm_root, params, kw):
     card = mesh.device.type == "cuda"
     if card:
         torch.cuda.reset_peak_memory_stats(mesh.device)
-    state, info = _path_run(mesh, lambda: fit_streaming(
-        MovieStore(root), p, device=mesh.device, mesh=mesh, timer=timer,
-        **kw))
-    info.update(stages=dict(timer.times),
+    with count_broadcasts() as calls:
+        state, info = _path_run(mesh, lambda: fit_streaming(
+            MovieStore(root), p, device=mesh.device, mesh=mesh, timer=timer,
+            **kw))
+    info.update(stages=dict(timer.times), broadcasts=calls[0],
                 peak=torch.cuda.max_memory_allocated(mesh.device) if card
                 else 0,
                 state=state_to_numpy(state) if mesh.rank == 0 else None)
@@ -790,4 +918,64 @@ def card_fit_identity(mesh, y_path, warm_path, params, n_outer):
         st, info = _path_run(mesh, lambda: CNMFE(
             p, mesh=m).fit(Y, n_outer=n_outer))
         out[what] = dict(info, state=state_to_numpy(st))
+    return out
+
+
+def _batch_files(path, n_batches, mesh=None):
+    """The ``n_batches`` equal frame batches of the movie saved at
+    ``path`` (.npy): memmapped views, or with ``mesh`` this rank's block
+    of each on its device (the rank reads only its block)."""
+    Y = np.load(path, mmap_mode="r")
+    parts = np.split(Y, n_batches)
+    return parts if mesh is None else [shard_movie(Yb, mesh)
+                                       for Yb in parts]
+
+
+def card_batch(mesh, y_path, warm_path, params, n_batches):
+    """``fit_batches(mesh=...)`` on the card: a warm-up on the movie at
+    ``warm_path``, then the counted and timed run of the movie at
+    ``y_path`` in ``n_batches`` batches, each rank reading its block of
+    each, with a CommStageTimer and this rank's peak memory; the full
+    state on rank 0, every rank's active mask, per-batch counts and
+    digest of the state."""
+    p = params_from_dict(params)
+    fit_batches(_batch_files(warm_path, n_batches, mesh), p, mesh=mesh)
+    blocks = _batch_files(y_path, n_batches, mesh)
+    timer = CommStageTimer(mesh.device)
+    card = mesh.device.type == "cuda"
+    if card:
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    with count_broadcasts() as calls:
+        (state, per), info = _path_run(mesh, lambda: fit_batches(
+            blocks, p, mesh=mesh, timer=timer))
+    d = state_to_numpy(state)
+    info.update(stages=dict(timer.times), stage_comm=dict(timer.comm),
+                broadcasts=calls[0],
+                peak=torch.cuda.max_memory_allocated(mesh.device) if card
+                else 0, block=tuple(blocks[0].shape),
+                active=state.active.cpu().numpy(),
+                per_batch=[int(st.n_active()) for st in per],
+                digest=digest(d), state=d if mesh.rank == 0 else None)
+    return info
+
+
+def card_batch_identity(mesh, y_path, warm_path, params, n_batches):
+    """``fit_batches`` with ``mesh`` (a 1 x 1 mesh: the blocks are the
+    batches) and with ``mesh=None`` in one process on the card, on the
+    same tensors, after a warm-up of each: both full states, walls,
+    counts and per-batch neuron counts."""
+    p = params_from_dict(params)
+    dev = mesh.device
+
+    def upload(path):
+        return [torch.as_tensor(np.array(Yb), device=dev)
+                for Yb in _batch_files(path, n_batches)]
+    warm, movie = upload(warm_path), upload(y_path)
+    out = {}
+    for what, m in (("mesh", mesh), ("none", None)):
+        fit_batches(warm, p, mesh=m, device=dev)
+        (st, per), info = _path_run(mesh, lambda: fit_batches(
+            movie, p, mesh=m, device=dev))
+        out[what] = dict(info, state=state_to_numpy(st),
+                         per_batch=[int(x.n_active()) for x in per])
     return out

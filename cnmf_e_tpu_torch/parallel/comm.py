@@ -21,11 +21,12 @@ process groups:
     row-sharded image, ties to the lowest index (``argmax``'s rule);
   * :func:`traces_to_neurons` / :func:`traces_to_frames` — the trace
     reshard: K over 'patch' with whole traces (the deconvolution), and
-    back to T over 'frame';
-  * :func:`broadcast_object` — a picklable object from rank 0.
+    back to T over 'frame'.
 
-Transport: the functions use three collectives, all-reduce, broadcast and
-all-gather, which both backends carry with CUDA tensors as they are:
+No function here pickles: the model's state travels as tensors only.
+
+Transport: the functions use two collectives, all-reduce and all-gather,
+which both backends carry with CUDA tensors as they are:
 NCCL on the card, gloo through its own host buffers. Gloo aborts the
 process (it does not raise) on all-to-all and on send/recv of CUDA
 tensors, so the halo exchange is an all-gather of the slabs' edge rows;
@@ -38,7 +39,6 @@ the other ranks included) and their calls.
 
 from __future__ import annotations
 
-import pickle
 import time
 from typing import Optional, Sequence
 
@@ -232,24 +232,3 @@ def traces_to_frames(x: torch.Tensor, T: int, mesh) -> torch.Tensor:
     t0, t1 = mesh.frames(T)
     return all_gather_cat(x[:, t0:t1], 0, mesh.patch_group)
 
-
-def broadcast_object(obj, mesh):
-    """Rank 0's ``obj`` on every rank of the mesh (pickled onto a byte
-    tensor: on the card under NCCL, on the host under gloo)."""
-    dev = mesh.device if dist.get_backend() == "nccl" else \
-        torch.device("cpu")
-    if mesh.rank == 0:
-        data = torch.frombuffer(bytearray(pickle.dumps(obj)),
-                                dtype=torch.uint8).to(dev)
-        size = torch.tensor([data.numel()], dtype=torch.int64, device=dev)
-    else:
-        size = torch.zeros(1, dtype=torch.int64, device=dev)
-    with _counted(_nbytes(size)):
-        dist.broadcast(size, src=0)
-    if mesh.rank != 0:
-        data = torch.empty(int(size.item()), dtype=torch.uint8, device=dev)
-    with _counted(_nbytes(data)):
-        dist.broadcast(data, src=0)
-    if mesh.rank == 0:
-        return obj
-    return pickle.loads(data.cpu().numpy().tobytes())

@@ -21,9 +21,9 @@ timeout on every collective) runs:
   * every option and method of ``CNMFE`` on the mesh (each background
     model, search method and spatial algorithm, ``decorrelate``, the
     decimated and detrended init, ``run_log``, ``resume_from``, ``dff``,
-    ``background``, ``reconstruction``, ``residual``, ``compute_rss``):
-    each runs, and every rank returns the same state, bit for bit; the
-    NotImplementedError of ``fit_batches(mesh=)`` and the ValueError of
+    ``background``, ``reconstruction``, ``residual``, ``compute_rss``) and
+    ``fit_batches`` (the movie's halves as two batches): each runs, and
+    every rank returns the same state, bit for bit; the ValueError of
     every indivisible dimension. Their accuracy is
     ``tests/test_torch_mesh_options.py``'s and
     ``tests/test_torch_mesh_methods.py``'s.
@@ -87,10 +87,10 @@ GUARDS = [
 # the options and methods that run on the mesh
 RUNS = {"bg_local", "bg_svd", "bg_nmf", "ellipse", "nnls", "hals_thresh",
         "decorrelate", "init_ssub", "init_tsub", "init_nk", "run_log",
-        "resume_from", "dff", "background", "reconstruction", "residual",
-        "compute_rss"}
+        "resume_from", "fit_batches", "dff", "background", "reconstruction",
+        "residual", "compute_rss"}
 # what each guard's message names
-NAMES = dict(fit_batches="fit_batches", K_max="K = 15",
+NAMES = dict(K_max="K = 15",
              seeds_per_round="seeds_per_round", bg_ssub="background.ssub",
              other_device="not the mesh's", unequal_blocks="differ in T",
              init_tsub_frames="init.tsub = 3",
@@ -269,11 +269,11 @@ def test_merge_and_qc_with_a_seeded_duplicate(ranks, mode):
 
 @pytest.mark.parametrize("name", [n for n, _ in GUARDS])
 def test_mesh_guards(ranks, name):
-    """Each option and method of ``CNMFE`` runs on the mesh, finds
-    neurons, gives finite values, and every rank returns the same state
-    (and method value) bit for bit; ``fit_batches`` raises
-    NotImplementedError naming it; each dimension that does not divide
-    raises a ValueError naming it; every rank raises alike."""
+    """Each option and method of ``CNMFE``, and ``fit_batches``, runs on
+    the mesh, finds neurons, gives finite values, and every rank returns
+    the same state (and method value) bit for bit; each dimension that
+    does not divide raises a ValueError naming it; every rank raises
+    alike."""
     got = ranks[0]["guards"][name]
     assert got is not None, name
     if name in RUNS:
@@ -286,8 +286,7 @@ def test_mesh_guards(ranks, name):
             assert r["guards"][name][:2] == ("ok", dig), name
         return
     kind, msg = got
-    want = "NotImplementedError" if name == "fit_batches" else "ValueError"
-    assert kind == want, got
+    assert kind == "ValueError", got
     assert NAMES[name] in msg, msg
     for r in ranks[1:]:
         assert r["guards"][name][0] == kind

@@ -29,6 +29,7 @@ from cnmf_e_tpu.utils.simulate import simulate_movie_store
 from cnmf_e_tpu_torch.convert import params_from_dict
 from cnmf_e_tpu_torch.io.store import MovieStore, distribute_movie
 from cnmf_e_tpu_torch.models import streaming
+from cnmf_e_tpu_torch.models.qc import row_batches
 from cnmf_e_tpu_torch.models.state import RingWeights
 from cnmf_e_tpu_torch.ops.ring_kernels import ring_offsets
 from cnmf_e_tpu_torch.utils.profiling import StageTimer
@@ -201,7 +202,7 @@ def test_resume_from_a_post_spatial_snapshot(fits, frames_chunked,
 
 def test_row_batches_are_near_equal_and_cover_every_row():
     for K, rows in ((2304, 640), (640, 640), (641, 640), (16, 4), (5, 64)):
-        sl = streaming._row_batches(K, rows)
+        sl = row_batches(K, rows)
         sizes = [s.stop - s.start for s in sl]
         assert sl[0].start == 0 and sl[-1].stop == K
         assert all(a.stop == b.start for a, b in zip(sl, sl[1:]))
