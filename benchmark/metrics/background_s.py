@@ -1,0 +1,9 @@
+"""background_s: seconds a round in the background's calls
+(update_background and subtract_background): the mean over the traced run's
+spanned rounds, each span closed by a synchronisation."""
+
+from benchmark.metrics._stage import mean_span
+
+
+def read(obs):
+    return mean_span(obs, "background")
