@@ -23,6 +23,7 @@ from cnmf_e_tpu_torch.ops.ring import (_ssub_geometry, apply_ring,
                                        fit_ring_model, local_background,
                                        reconstruct_ring_background)
 from cnmf_e_tpu_torch.parallel import comm
+from cnmf_e_tpu_torch.utils.profiling import span
 
 
 def _neuron_free(Y: torch.Tensor, state: CNMFEState) -> torch.Tensor:
@@ -38,24 +39,25 @@ def update_background(Y: torch.Tensor, state: CNMFEState,
                       sn_pix: Optional[torch.Tensor] = None,
                       mesh=None) -> CNMFEState:
     """Refit the background model given the current (A, C). Y: (T, H, W)."""
-    bp = params.background
-    if bp.model == "ring":
-        weights, b0, _ = fit_ring_model(
-            Y, state.masked_A(), state.masked_C(), radius=bp.ring_radius,
-            W_old=state.W, sn=sn_pix, thresh_outlier=bp.thresh_outlier,
-            frame_cap_factor=bp.frame_cap_factor, ridge_eps=bp.ridge_eps,
-            ssub=bp.ssub, mesh=mesh)
-        return state.replace(W=weights, b0=b0)
-    if bp.model == "local":
-        # on Ybg = Y - A C, so transients the event mask misses cannot
-        # bias the ring weights (Sources2D.m:1717-1733, localBG)
-        _, weights, b0 = local_background(
-            _neuron_free(Y, state), radius=bp.ring_radius, sn=sn_pix,
-            ssub=bp.ssub, ridge_eps=bp.ridge_eps, mesh=mesh)
-        return state.replace(W=weights, b0=b0)
-    b, f, b0 = fit_lowrank_model(Y, state.masked_A(), state.masked_C(),
-                                 rank=bp.rank, mode=bp.model, mesh=mesh)
-    return state.replace(b=b, f=f, b0=b0)
+    with span("update_background"):
+        bp = params.background
+        if bp.model == "ring":
+            weights, b0, _ = fit_ring_model(
+                Y, state.masked_A(), state.masked_C(), radius=bp.ring_radius,
+                W_old=state.W, sn=sn_pix, thresh_outlier=bp.thresh_outlier,
+                frame_cap_factor=bp.frame_cap_factor, ridge_eps=bp.ridge_eps,
+                ssub=bp.ssub, mesh=mesh)
+            return state.replace(W=weights, b0=b0)
+        if bp.model == "local":
+            # on Ybg = Y - A C, so transients the event mask misses cannot
+            # bias the ring weights (Sources2D.m:1717-1733, localBG)
+            _, weights, b0 = local_background(
+                _neuron_free(Y, state), radius=bp.ring_radius, sn=sn_pix,
+                ssub=bp.ssub, ridge_eps=bp.ridge_eps, mesh=mesh)
+            return state.replace(W=weights, b0=b0)
+        b, f, b0 = fit_lowrank_model(Y, state.masked_A(), state.masked_C(),
+                                     rank=bp.rank, mode=bp.model, mesh=mesh)
+        return state.replace(b=b, f=f, b0=b0)
 
 
 def background_of(Y: torch.Tensor, state: CNMFEState,
@@ -94,7 +96,8 @@ def background_of(Y: torch.Tensor, state: CNMFEState,
 def subtract_background(Y: torch.Tensor, state: CNMFEState,
                         params: CNMFEParams, mesh=None) -> torch.Tensor:
     """Ysignal = Y - B, the input to the factor updates."""
-    return Y - background_of(Y, state, params, mesh=mesh)
+    with span("subtract_background"):
+        return Y - background_of(Y, state, params, mesh=mesh)
 
 
 def residual_movie(Y: torch.Tensor, state: CNMFEState,

@@ -30,6 +30,7 @@ from cnmf_e_tpu_torch.ops.morphology import (circular_constraint,
                                              search_locations_ellipse)
 from cnmf_e_tpu_torch.ops.nnls import nnls_pixels
 from cnmf_e_tpu_torch.parallel import comm
+from cnmf_e_tpu_torch.utils.profiling import span
 
 
 def _frame_std(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -52,45 +53,50 @@ def update_spatial(Ysignal: torch.Tensor, state: CNMFEState,
     ``hals_thresh`` and ``lars``; without it the residual's standard
     deviation stands in, which overestimates the floor while signal is
     unmodelled."""
-    sp = params.spatial
-    T, H, W = Ysignal.shape
-    K = state.K_max
-    A = state.masked_A()
-    C = state.masked_C()
-    if sp.search_method == "dilate":
-        masks = search_locations_dilate(A, radius=sp.dilate_radius,
-                                        mesh=mesh)
-    elif sp.search_method == "ellipse":
-        masks = search_locations_ellipse(A, mesh=mesh)
-    else:
-        masks = torch.ones_like(A, dtype=torch.bool)
-    masks = masks & state.active[:, None, None]
-    Yd = Ysignal.reshape(T, H * W).T                 # (d, T)
-    Ad = A.reshape(K, H * W).T                       # (d, K)
-    Md = masks.reshape(K, H * W).T
-    if sp.algorithm in ("hals", "hals_thresh"):
-        Ad = hals_spatial(Yd, Ad, C, mask=Md, n_iter=sp.n_iter, mesh=mesh)
-        if sp.algorithm == "hals_thresh":
-            # zero a_dk where a_dk ||C_k - mean|| < 3 sn_d
-            # (HALS_spatial_thresh.m:37,51)
-            Cc = C - comm.frame_mean(C, -1, mesh, keepdim=True)
-            cnorm = torch.sqrt(comm.psum((Cc * Cc).sum(dim=-1), mesh,
-                                         "frame"))
-            sn_d = (sn_pix.reshape(-1, 1) if sn_pix is not None
-                    else _frame_std(Yd - Ad @ C, mesh)[:, None])
-            Ad = torch.where(Ad * cnorm[None, :] > 3.0 * sn_d, Ad, 0.0)
-    elif sp.algorithm == "nnls":
-        Ad = nnls_pixels(C, Yd, A0=Ad, mask=Md, n_iter=20 * sp.n_iter,
-                         mesh=mesh)
-    elif sp.algorithm == "lars":
-        from cnmf_e_tpu_torch.models.cnmf2p import lasso_noise_constrained
-        sn_d = (sn_pix.reshape(-1) if sn_pix is not None
-                else _frame_std(Yd - Ad @ C, mesh))
-        Ad = lasso_noise_constrained(C, Yd, sn_d, Md, mesh=mesh)
-    else:
-        raise ValueError(f"unknown spatial algorithm {sp.algorithm!r}")
-    A_new = post_process_spatial(Ad.T.reshape(K, H, W), params, mesh)
-    return state.replace(A=A_new * state.active[:, None, None])
+    with span("update_spatial"):
+        sp = params.spatial
+        T, H, W = Ysignal.shape
+        K = state.K_max
+        A = state.masked_A()
+        C = state.masked_C()
+        with span("spatial.search"):
+            if sp.search_method == "dilate":
+                masks = search_locations_dilate(A, radius=sp.dilate_radius,
+                                                mesh=mesh)
+            elif sp.search_method == "ellipse":
+                masks = search_locations_ellipse(A, mesh=mesh)
+            else:
+                masks = torch.ones_like(A, dtype=torch.bool)
+            masks = masks & state.active[:, None, None]
+        Yd = Ysignal.reshape(T, H * W).T                 # (d, T)
+        Ad = A.reshape(K, H * W).T                       # (d, K)
+        Md = masks.reshape(K, H * W).T
+        if sp.algorithm in ("hals", "hals_thresh"):
+            Ad = hals_spatial(Yd, Ad, C, mask=Md, n_iter=sp.n_iter,
+                              mesh=mesh)
+            if sp.algorithm == "hals_thresh":
+                # zero a_dk where a_dk ||C_k - mean|| < 3 sn_d
+                # (HALS_spatial_thresh.m:37,51)
+                Cc = C - comm.frame_mean(C, -1, mesh, keepdim=True)
+                cnorm = torch.sqrt(comm.psum((Cc * Cc).sum(dim=-1), mesh,
+                                             "frame"))
+                sn_d = (sn_pix.reshape(-1, 1) if sn_pix is not None
+                        else _frame_std(Yd - Ad @ C, mesh)[:, None])
+                Ad = torch.where(Ad * cnorm[None, :] > 3.0 * sn_d, Ad, 0.0)
+        elif sp.algorithm == "nnls":
+            Ad = nnls_pixels(C, Yd, A0=Ad, mask=Md, n_iter=20 * sp.n_iter,
+                             mesh=mesh)
+        elif sp.algorithm == "lars":
+            from cnmf_e_tpu_torch.models.cnmf2p import lasso_noise_constrained
+            sn_d = (sn_pix.reshape(-1) if sn_pix is not None
+                    else _frame_std(Yd - Ad @ C, mesh))
+            Ad = lasso_noise_constrained(C, Yd, sn_d, Md, mesh=mesh)
+        else:
+            raise ValueError(f"unknown spatial algorithm {sp.algorithm!r}")
+        with span("spatial.post_process"):
+            A_new = post_process_spatial(Ad.T.reshape(K, H, W), params,
+                                         mesh)
+        return state.replace(A=A_new * state.active[:, None, None])
 
 
 def post_process_spatial(A: torch.Tensor, params: CNMFEParams,

@@ -27,6 +27,7 @@ from cnmf_e_tpu_torch.ops.coloring import (class_step_schedule,
 from cnmf_e_tpu_torch.ops.hals_kernels import (block_grid_schedule,
                                                hals_sweeps)
 from cnmf_e_tpu_torch.parallel import comm
+from cnmf_e_tpu_torch.utils.profiling import span
 
 
 _BLOCK = 64                 # rows per sweep step of one colour class
@@ -89,22 +90,28 @@ def hals_spatial(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
     otherwise they update in order, 16 rows a step, as in the JAX
     package's default."""
     T = Y.shape[-1] * (1 if mesh is None else mesh.n_frame)
-    Ymean = comm.frame_mean(Y, 1, mesh, keepdim=True)
-    Cmean = comm.frame_mean(C, 1, mesh, keepdim=True)
-    # row-major (K, d) operands straight from the products, so the kernel
-    # reads them without a transposing copy
-    U = comm.psum(C @ Y.T, mesh, "frame") - T * (Cmean @ Ymean.T)  # (K, d)
-    V = comm.psum(C @ C.T, mesh, "frame") - T * (Cmean @ Cmean.T)  # (K, K)
+    with span("hals.products"):
+        Ymean = comm.frame_mean(Y, 1, mesh, keepdim=True)
+        Cmean = comm.frame_mean(C, 1, mesh, keepdim=True)
+        # row-major (K, d) operands straight from the products, so the
+        # kernel reads them without a transposing copy
+        U = (comm.psum(C @ Y.T, mesh, "frame")
+             - T * (Cmean @ Ymean.T))                       # (K, d)
+        V = (comm.psum(C @ C.T, mesh, "frame")
+             - T * (Cmean @ Cmean.T))                       # (K, K)
     if not (colored and mask is not None):
-        return hals_spatial_sweeps_rows(
-            U, V, A.T, mask=None if mask is None else mask.T,
-            n_iter=n_iter).T
-    order, inverse, sched = _colored(overlap_adjacency(mask.T, mesh))
-    out = hals_spatial_sweeps_rows(U[order], V[order][:, order],
-                                   A.T[order], mask=mask.T[order],
-                                   n_iter=n_iter, block=_BLOCK,
-                                   schedule=sched)
-    return out[inverse].T
+        with span("hals.sweeps"):
+            return hals_spatial_sweeps_rows(
+                U, V, A.T, mask=None if mask is None else mask.T,
+                n_iter=n_iter).T
+    with span("hals.color"):
+        order, inverse, sched = _colored(overlap_adjacency(mask.T, mesh))
+    with span("hals.sweeps"):
+        out = hals_spatial_sweeps_rows(U[order], V[order][:, order],
+                                       A.T[order], mask=mask.T[order],
+                                       n_iter=n_iter, block=_BLOCK,
+                                       schedule=sched)
+        return out[inverse].T
 
 
 def hals_temporal(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
@@ -119,19 +126,23 @@ def hals_temporal(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
     footprint overlap graph (disjoint footprints give exact-zero V
     entries); otherwise they update in order, 16 rows a step, as in the
     JAX package's default."""
-    U = comm.psum(A.T @ Y, mesh, "patch")                   # (K, T)
-    V = comm.psum(A.T @ A, mesh, "patch")                   # (K, K)
+    with span("hals.products"):
+        U = comm.psum(A.T @ Y, mesh, "patch")               # (K, T)
+        V = comm.psum(A.T @ A, mesh, "patch")               # (K, K)
     if not colored:
-        return (hals_temporal_sweeps(U, V, C, n_iter=n_iter, active=active),
-                torch.diagonal(V))
+        with span("hals.sweeps"):
+            return (hals_temporal_sweeps(U, V, C, n_iter=n_iter,
+                                         active=active), torch.diagonal(V))
     K = V.shape[0]
-    adj = (V != 0) & ~torch.eye(K, dtype=torch.bool, device=V.device)
-    order, inverse, sched = _colored(adj)
-    act = None if active is None else active[order]
-    out = hals_temporal_sweeps(U[order], V[order][:, order], C[order],
-                               n_iter=n_iter, active=act, schedule=sched,
-                               block=_BLOCK)
-    return out[inverse], torch.diagonal(V)
+    with span("hals.color"):
+        adj = (V != 0) & ~torch.eye(K, dtype=torch.bool, device=V.device)
+        order, inverse, sched = _colored(adj)
+    with span("hals.sweeps"):
+        act = None if active is None else active[order]
+        out = hals_temporal_sweeps(U[order], V[order][:, order], C[order],
+                                   n_iter=n_iter, active=act,
+                                   schedule=sched, block=_BLOCK)
+        return out[inverse], torch.diagonal(V)
 
 
 def hals_nmf(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,

@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from cnmf_e_tpu_torch.parallel import comm
+from cnmf_e_tpu_torch.utils.profiling import span
 
 
 def _randn(shape, gen: torch.Generator, dtype, device) -> torch.Tensor:
@@ -240,19 +241,20 @@ def fit_lowrank_model(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
     (K, H/patch, W) and (K, T/frame), and so are b, f and b0: the
     residual Xc (d, T) has its rows over 'patch' and its columns over
     'frame'."""
-    T, H, W = Y.shape
-    K = A.shape[0]
-    resid = Y.reshape(T, -1) - C.T @ A.reshape(K, -1)
-    b0 = comm.frame_mean(resid, 0, mesh)
-    Xc = (resid - b0[None]).T                       # (d, T)
-    if mode == "svd":
-        U, s, Vt = randomized_svd(Xc, rank, mesh=mesh)
-        b = (U * s[None]).T.reshape(rank, H, W)
-        f = Vt
-    elif mode == "nmf":
-        Wf, Hf = nmf_hals(Xc, rank, mesh=mesh)
-        b = Wf.T.reshape(rank, H, W)
-        f = Hf
-    else:
-        raise ValueError(f"unknown low-rank mode {mode!r}")
-    return b, f, b0.reshape(H, W)
+    with span("lowrank.fit"):
+        T, H, W = Y.shape
+        K = A.shape[0]
+        resid = Y.reshape(T, -1) - C.T @ A.reshape(K, -1)
+        b0 = comm.frame_mean(resid, 0, mesh)
+        Xc = (resid - b0[None]).T                       # (d, T)
+        if mode == "svd":
+            U, s, Vt = randomized_svd(Xc, rank, mesh=mesh)
+            b = (U * s[None]).T.reshape(rank, H, W)
+            f = Vt
+        elif mode == "nmf":
+            Wf, Hf = nmf_hals(Xc, rank, mesh=mesh)
+            b = Wf.T.reshape(rank, H, W)
+            f = Hf
+        else:
+            raise ValueError(f"unknown low-rank mode {mode!r}")
+        return b, f, b0.reshape(H, W)

@@ -30,6 +30,7 @@ from cnmf_e_tpu_torch.ops.noise import noise_psd_frames
 from cnmf_e_tpu_torch.ops.ring_kernels import (apply_ring_stencil,
                                                ring_offsets)
 from cnmf_e_tpu_torch.parallel import comm
+from cnmf_e_tpu_torch.utils.profiling import span
 
 
 def _neighbor_index(H: int, W: int, offsets: np.ndarray,
@@ -85,10 +86,15 @@ def fit_ring_weights(Bf: torch.Tensor, H: int, W: int, radius: int,
     offsets = ring_offsets(radius)
     R = offsets.shape[0]
     m = int(np.abs(offsets).max())
-    idx, valid = _neighbor_index(H, W, offsets, fov_rows)
     r0, r1 = (0, H) if rows is None else rows
-    idx, valid = idx[r0 * W:r1 * W], valid[r0 * W:r1 * W]
     d = (r1 - r0) * W
+    with span("ring.neighbor_index"):
+        idx, valid = _neighbor_index(H, W, offsets, fov_rows)
+        idx_t = torch.as_tensor(idx[r0 * W:r1 * W], device=dev)
+        valid_t = torch.as_tensor(valid[r0 * W:r1 * W], device=dev)
+        # freed here, not on return: unmapping the host arrays takes
+        # milliseconds at a 256x256 grid, and belongs to this step
+        del idx, valid
     Bf_flat = F.pad(Bf, (m, m, m, m)).reshape(T, -1)
     # contiguous, as a whole field of view's rows are: a slab's rows
     # inside a halo would be a strided view, which the card reduces in
@@ -96,63 +102,63 @@ def fit_ring_weights(Bf: torch.Tensor, H: int, W: int, radius: int,
     y_flat = Bf[:, r0:r1].reshape(T, d).contiguous()
     m_flat = (None if mask is None
               else mask[:, r0:r1].to(torch.float32).reshape(T, d))
-    idx_t = torch.as_tensor(idx, device=dev)
-    valid_t = torch.as_tensor(valid, device=dev)
     TB = min(512, T)
     eye_r = torch.eye(R, dtype=torch.float32, device=dev)
     eye = torch.eye(R + 1 if intercept else R, dtype=torch.float32,
                     device=dev)
     sols = []
     for p0 in range(0, d, chunk):
-        ic = idx_t[p0:p0 + chunk]
-        vc = valid_t[p0:p0 + chunk].to(torch.float32)
-        P = ic.shape[0]
-        G = torch.zeros((P, R, R), dtype=torch.float32, device=dev)
-        sx = torch.zeros((P, R), dtype=torch.float32, device=dev)
-        Xy = torch.zeros((P, R), dtype=torch.float32, device=dev)
-        sy = torch.zeros((P,), dtype=torch.float32, device=dev)
-        cnt = (torch.full((P,), float(T), device=dev) if m_flat is None
-               else torch.zeros((P,), device=dev))
-        for t0 in range(0, T, TB):
-            X = Bf_flat[t0:t0 + TB][:, ic] * vc[None]       # (tb, P, R)
-            yb = y_flat[t0:t0 + TB, p0:p0 + P]              # (tb, P)
-            if m_flat is not None:
-                mb = m_flat[t0:t0 + TB, p0:p0 + P]
-                X = X * mb[:, :, None]
-                yb = yb * mb
-                cnt = cnt + mb.sum(dim=0)
-            Xp = X.permute(1, 2, 0)                         # (P, R, tb)
-            G = G + Xp @ Xp.transpose(1, 2)
-            sx = sx + X.sum(dim=0)
-            Xy = Xy + (Xp @ yb.T[:, :, None])[..., 0]
-            sy = sy + yb.sum(dim=0)
-        if neighbor_cutoff < 1.0:
-            ratio = Xy / torch.clamp(torch.diagonal(G, dim1=1, dim2=2),
-                                     min=1e-12)
-            thr = torch.quantile(ratio, neighbor_cutoff, dim=-1,
-                                 keepdim=True)
-            keep = (ratio <= thr).to(torch.float32)
-            G = G * keep[:, :, None] * keep[:, None, :] \
-                + eye_r[None] * (1.0 - keep)[:, :, None]
-            Xy = Xy * keep
-            sx = sx * keep
-        if intercept:
-            cnt = torch.clamp(cnt, min=1.0)[:, None, None]
-            Gfull = torch.cat([torch.cat([G, sx[:, :, None]], dim=2),
-                               torch.cat([sx[:, None, :], cnt], dim=2)],
-                              dim=1)
-            rhs = torch.cat([Xy, sy[:, None]], dim=1)
-        else:
-            Gfull, rhs = G, Xy
-        tr = torch.diagonal(Gfull, dim1=1, dim2=2).sum(dim=1)
-        # a pixel without an in-FOV neighbour has a zero system, which
-        # does not factor; its weights are all masked to 0 below, as in
-        # the JAX package (cho_factor leaves NaN there), so no check
-        Lc, _ = torch.linalg.cholesky_ex(
-            Gfull + (ridge_eps * tr)[:, None, None] * eye)
-        sol = torch.cholesky_solve(rhs[..., None], Lc)[..., 0]
-        if not intercept:
-            sol = torch.cat([sol, torch.zeros((P, 1), device=dev)], dim=1)
+        with span("ring.normal_equations"):
+            ic = idx_t[p0:p0 + chunk]
+            vc = valid_t[p0:p0 + chunk].to(torch.float32)
+            P = ic.shape[0]
+            G = torch.zeros((P, R, R), dtype=torch.float32, device=dev)
+            sx = torch.zeros((P, R), dtype=torch.float32, device=dev)
+            Xy = torch.zeros((P, R), dtype=torch.float32, device=dev)
+            sy = torch.zeros((P,), dtype=torch.float32, device=dev)
+            cnt = (torch.full((P,), float(T), device=dev) if m_flat is None
+                   else torch.zeros((P,), device=dev))
+            for t0 in range(0, T, TB):
+                X = Bf_flat[t0:t0 + TB][:, ic] * vc[None]       # (tb, P, R)
+                yb = y_flat[t0:t0 + TB, p0:p0 + P]              # (tb, P)
+                if m_flat is not None:
+                    mb = m_flat[t0:t0 + TB, p0:p0 + P]
+                    X = X * mb[:, :, None]
+                    yb = yb * mb
+                    cnt = cnt + mb.sum(dim=0)
+                Xp = X.permute(1, 2, 0)                         # (P, R, tb)
+                G = G + Xp @ Xp.transpose(1, 2)
+                sx = sx + X.sum(dim=0)
+                Xy = Xy + (Xp @ yb.T[:, :, None])[..., 0]
+                sy = sy + yb.sum(dim=0)
+        with span("ring.solve"):
+            if neighbor_cutoff < 1.0:
+                ratio = Xy / torch.clamp(torch.diagonal(G, dim1=1, dim2=2),
+                                         min=1e-12)
+                thr = torch.quantile(ratio, neighbor_cutoff, dim=-1,
+                                     keepdim=True)
+                keep = (ratio <= thr).to(torch.float32)
+                G = G * keep[:, :, None] * keep[:, None, :] \
+                    + eye_r[None] * (1.0 - keep)[:, :, None]
+                Xy = Xy * keep
+                sx = sx * keep
+            if intercept:
+                cnt = torch.clamp(cnt, min=1.0)[:, None, None]
+                Gfull = torch.cat([torch.cat([G, sx[:, :, None]], dim=2),
+                                   torch.cat([sx[:, None, :], cnt], dim=2)],
+                                  dim=1)
+                rhs = torch.cat([Xy, sy[:, None]], dim=1)
+            else:
+                Gfull, rhs = G, Xy
+            tr = torch.diagonal(Gfull, dim1=1, dim2=2).sum(dim=1)
+            # a pixel without an in-FOV neighbour has a zero system, which
+            # does not factor; its weights are all masked to 0 below, as in
+            # the JAX package (cho_factor leaves NaN there), so no check
+            Lc, _ = torch.linalg.cholesky_ex(
+                Gfull + (ridge_eps * tr)[:, None, None] * eye)
+            sol = torch.cholesky_solve(rhs[..., None], Lc)[..., 0]
+            if not intercept:
+                sol = torch.cat([sol, torch.zeros((P, 1), device=dev)], dim=1)
         sols.append(sol)
     sol = torch.cat(sols, dim=0)
     return RingWeights(w=torch.where(valid_t, sol[:, :R], 0.0),
@@ -261,19 +267,24 @@ def fit_ring_model(Y: torch.Tensor, A: torch.Tensor, C: torch.Tensor,
     Hf, Tf = H, T                       # the field of view's rows, frames
     if mesh is not None:
         Hf, Tf = H * mesh.n_patch, T * mesh.n_frame
-    Ymean = comm.frame_mean(Y, 0, mesh)
-    Cmean = comm.frame_mean(C, -1, mesh)
-    b0 = Ymean - (Cmean @ A.reshape(K, -1)).reshape(H, W)
-    Cc = C - Cmean[:, None]
-    Bf = (Y - Ymean[None]) - (Cc.T @ A.reshape(K, -1)).reshape(T, H, W)
+    with span("ring.residual"):
+        Ymean = comm.frame_mean(Y, 0, mesh)
+        Cmean = comm.frame_mean(C, -1, mesh)
+        b0 = Ymean - (Cmean @ A.reshape(K, -1)).reshape(H, W)
+        Cc = C - Cmean[:, None]
+        Bf = (Y - Ymean[None]) - (Cc.T @ A.reshape(K, -1)).reshape(T, H, W)
     Hs, Ws, radius_s = _ssub_geometry(Hf, W, radius, ssub)
     if ssub > 1:
-        Bf = box_downsample(Bf, ssub=ssub)
+        with span("ring.downsample"):
+            Bf = box_downsample(Bf, ssub=ssub)
     if W_old is not None and sn is not None and np.isfinite(thresh_outlier):
-        sn_s = box_downsample(sn[None], ssub=ssub)[0] if ssub > 1 else sn
-        pred = apply_ring(W_old, Bf, Hs, Ws, radius_s,
-                          include_intercept=False, mesh=mesh)
-        Bf = torch.where(Bf > pred + thresh_outlier * sn_s[None], pred, Bf)
+        with span("ring.outlier_clamp"):
+            sn_s = box_downsample(sn[None], ssub=ssub)[0] if ssub > 1 \
+                else sn
+            pred = apply_ring(W_old, Bf, Hs, Ws, radius_s,
+                              include_intercept=False, mesh=mesh)
+            Bf = torch.where(Bf > pred + thresh_outlier * sn_s[None], pred,
+                             Bf)
     R = ring_offsets(radius_s).shape[0]
     nmax = frame_cap_factor * R
     stride = int(np.ceil(Tf / nmax)) if Tf > nmax else 1
