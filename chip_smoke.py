@@ -10,7 +10,13 @@ Phases (each fails the script when its check fails):
      the card, at the shapes CNMFE.fit and the update step give it on a
      256x256x2000 movie with 192 neuron slots and ring radius 13, with
      median CUDA-event times of both and each kernel's bound; K1 also at
-     edge shapes (K from 1 to 4000, mixed schedules, gate zeros, masks);
+     edge shapes (K from 1 to 4000, mixed schedules, gate zeros, masks),
+     and its compacted body (masked calls, held to the dense body to the
+     bit) at the k2000 and 2p benchmark cells' spatial calls, timed beside
+     its bytes bound, and at edge cases
+     (ragged d, a tile at capacity and one over, an all-ones mask on the
+     dense fallback, gate zeros, free steps of overlapping rows, the
+     unmasked temporal call), each with its compact_stats;
      the ring stencil K6 (both its bodies) and the banded bf16 ring
      products K5 and K7 at the step's shapes and at edge shapes (widths
      and heights off the tiles, T = 1, 7, 2001, a field of view narrower
@@ -358,12 +364,60 @@ def slice_problem(K=192, H=256, W=256, T=2000, seed=0):
     return A, C, Y, g
 
 
+def compact_counts(M: torch.Tensor, TD: int) -> torch.Tensor:
+    """Active rows of each TD-column tile of the mask M (K, d): the rows
+    the compacted body runs there."""
+    K, d = M.shape
+    pad = torch.zeros((K, -(-d // TD) * TD - d), dtype=torch.bool,
+                      device=M.device)
+    return torch.cat([M.bool(), pad], dim=1).view(K, -1, TD).any(
+        dim=2).sum(dim=0)
+
+
+def compact_work(M: torch.Tensor, TD: int, n_iter: int):
+    """(operations, bytes) a masked call needs: 2 k_t^2 TD multiply-adds
+    a sweep on the k_t active rows of each tile; one read of the mask,
+    one write of the (K, d) output, the active rows of X and U, the
+    sub-Grams, V's diagonal and the gate."""
+    K, d = M.shape
+    k = compact_counts(M, TD).double()
+    flops = float(2.0 * n_iter * TD * (k * k).sum())
+    nbytes_ = float(K * d * (M.element_size() + 4) + 8 * TD * k.sum()
+                    + 4 * (k * k).sum() + 8 * K)
+    return flops, nbytes_
+
+
+def dense_body(U, V, X, gate, sched, M, n_iter, block):
+    """K1's dense body on every tile of a masked call (the unmasked entry
+    point given the mask, as the compacted body's fallback runs a tile)."""
+    K, d = X.shape
+    TD, KC = hals_kernels._tiling(K, d, SM_COUNT)
+    f32 = lambda t: t.to(torch.float32).contiguous()
+    M8 = (M if M.dtype in (torch.bool, torch.uint8) else M > 0)
+    starts, ends, free, n_steps = (t.to(torch.int32).contiguous()
+                                   for t in sched)
+    out = torch.empty((K, d), device=DEV)
+    cuda_build.launch("hals_sweeps", DEV, f32(U), f32(V), f32(X), out,
+                      M8.contiguous().view(torch.uint8), f32(gate), starts,
+                      ends, free, n_steps, K, d, n_iter, 1,
+                      hals_kernels._rows_per_step(K, block), TD, KC)
+    return out
+
+
 def hals_case(what, U, V, X, gate, sched, M, n_iter, block, relu,
-              plain_reps=0):
+              plain_reps=0, expect=None):
     """K1 on one call against its plain version (within HALS_TOL times
     1 + |x|); with plain_reps > 0 also timed: the kernel, the plain version,
-    and n_iter f32 torch.mm(V, X) (the same multiply-adds as a Jacobi sweep,
-    a yardstick of cuBLAS's FP32 rate here that the port never calls)."""
+    and n_iter f32 torch.mm(V, X) (the same multiply-adds as a dense Jacobi
+    sweep, a yardstick of cuBLAS's FP32 rate here that the port never
+    calls). A masked call launches the compacted body and the dense
+    fallback (two launches, its compact_stats printed, held to ``expect``:
+    "compact" every tile on the compacted body, "fallback" every tile on
+    the dense body, or a number of fallback tiles); an unmasked call the
+    dense body alone and no compacted tile. The bound of a masked call is
+    what its active rows need (compact_work), of an unmasked one the dense
+    2 K^2 d n_iter operations. A masked call's result must equal the dense
+    body's (dense_body) to the bit."""
     K, d = X.shape
 
     def kernel():
@@ -374,23 +428,51 @@ def hals_case(what, U, V, X, gate, sched, M, n_iter, block, relu,
         return hals_kernels.hals_sweeps_reference(U, V, X, gate, sched, M,
                                                   n_iter, block, relu)
 
-    out_k, out_p = kernel(), plain()
+    TD, KC = hals_kernels._tiling(K, d, hals_kernels._sm_count(DEV.index))
+    n_tiles = -(-d // TD)
+    before = hals_kernels.compact_stats(DEV)
+    launches = cuda_build.LAUNCHES["hals_sweeps"]
+    out_k = kernel()
+    after = hals_kernels.compact_stats(DEV)
+    stats = {k: after[k] - before[k] for k in after}
+    launches = cuda_build.LAUNCHES["hals_sweeps"] - launches
+    out_p = plain()
     torch.cuda.synchronize()
     err = (out_k - out_p).abs()
     ok = bool((err <= HALS_TOL * (1 + out_p.abs())).all()
               and torch.isfinite(out_k).all())
     steps = int(sched[3])
     res = dict(case=what, K=K, d=d, n_iter=n_iter, steps=steps,
-               mask=M is not None, max_abs_err=float(err.max()))
+               mask=M is not None, max_abs_err=float(err.max()), TD=TD,
+               launches=launches, compact_stats=stats)
     # the kernel's tiling: columns per CTA and Gram columns per V slice
-    TD, KC = hals_kernels._tiling(K, d, hals_kernels._sm_count(DEV.index))
     line = (f"phase 2: hals_sweeps {what} K={K} d={d} n_iter={n_iter} "
             f"block={block} steps={steps} mask={M is not None} TD={TD} "
             f"KC={KC}: max_abs_err "
-            f"{res['max_abs_err']:.3e} (tol {HALS_TOL:g}*(1+|x|))")
+            f"{res['max_abs_err']:.3e} (tol {HALS_TOL:g}*(1+|x|)); "
+            f"launches {launches}")
+    if M is not None:
+        k = compact_counts(M, TD)
+        dense = dense_body(U, V, X, gate, sched, M, n_iter, block)
+        same = bool(torch.equal(out_k, dense))
+        res.update(active_mean=float(k.double().mean()),
+                   active_max=int(k.max()), bit_identical_to_dense=same)
+        line += (f"; bit-identical to the dense body {same}"
+                 + ("" if same else
+                    f" ({int((out_k != dense).sum())} entries differ, by up "
+                    f"to {float((out_k - dense).abs().max()):.3e})"))
+        del dense
+        line += (f"; compact_stats {json.dumps(stats)} of {n_tiles} tiles "
+                 f"(active rows a tile: mean {res['active_mean']:.3f}, max "
+                 f"{res['active_max']}, capacity "
+                 f"{hals_kernels.COMPACT_ROWS})")
     if plain_reps:
-        bms, by = bound(n_iter * 2.0 * K * K * d,
-                        nbytes(U, V, X, X) + (0 if M is None else K * d))
+        if M is None:
+            flops, nb = (n_iter * 2.0 * K * K * d,
+                         nbytes(U, V, X, X))
+        else:
+            flops, nb = compact_work(M, TD, n_iter)
+        bms, by = bound(flops, nb)
         res.update(ms=cuda_ms(kernel, 5), plain_ms=cuda_ms(plain, plain_reps),
                    library_ms=cuda_ms(lambda: [torch.mm(V, X)
                                                for _ in range(n_iter)], 5),
@@ -401,6 +483,30 @@ def hals_case(what, U, V, X, gate, sched, M, n_iter, block, relu,
     print(line, flush=True)
     require(ok, f"hals_sweeps ({what}, K={K}, d={d}) disagrees with its "
             f"plain version")
+    if M is None:
+        require(launches == 1 and not any(stats.values()),
+                f"hals_sweeps ({what}): an unmasked call launched {launches} "
+                f"kernels, compact_stats {stats}")
+        return res
+    require(res["bit_identical_to_dense"],
+            f"hals_sweeps ({what}): the compacted body differs from the "
+            f"dense body")
+    require(launches == 2 and stats["compact_tiles"]
+            + stats["fallback_tiles"] == n_tiles,
+            f"hals_sweeps ({what}): {launches} launches, compact_stats "
+            f"{stats} over {n_tiles} tiles")
+    want_fb = {"compact": 0, "fallback": n_tiles}.get(expect, expect)
+    require(want_fb is None or stats["fallback_tiles"] == want_fb,
+            f"hals_sweeps ({what}): {stats['fallback_tiles']} fallback "
+            f"tiles, expected {want_fb}")
+    # a tile falls back past COMPACT_ROWS active rows (or, on a schedule
+    # of overlapping steps, past COMPACT_ROWS non-empty steps)
+    over = int((k > hals_kernels.COMPACT_ROWS).sum())
+    require(stats["fallback_tiles"] > over
+            or (stats["fallback_tiles"] == over and stats["active_rows"]
+                == int(k[k <= hals_kernels.COMPACT_ROWS].sum())),
+            f"hals_sweeps ({what}): compact_stats {stats}, but {over} tiles "
+            f"hold more than {hals_kernels.COMPACT_ROWS} active rows")
     return res
 
 
@@ -449,6 +555,156 @@ def phase2_hals_edges():
                                         n_cap=4 if kind == "mixed" else None)
         cases.append(hals_case(f"edge {kind}", U, V, X, gate, sched, M, 2,
                                block, masked or K % 2 == 1))
+    return cases
+
+
+def lattice_problem(K, gSig, H=512, W=512, T=200, seed=0):
+    """K1's masked spatial call at a benchmark cell's geometry
+    (benchmark/harness/inputs.py): centres on a pitch-10 lattice with
+    jitter 2 and margin 6, Gaussian footprints of sigma gSig (1 +- 0.2)
+    cut at two sigma, search masks dilated by 2 pixels; rows in the order
+    of a greedy colouring of the mask overlaps with its class schedule
+    (ops/hals.py). V = Cc Cc^T of T-frame traces, U = V A + noise."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    pitch, jitter, margin = 10, 2.0, 6
+    nx = (W - 2 * margin) // pitch
+    ny = (H - 2 * margin) // pitch
+    cell = torch.randperm(ny * nx, generator=g, device=DEV)[:K]
+    j = jitter * (2 * torch.rand((2, K), generator=g, device=DEV) - 1)
+    cy = margin + ((cell // nx).float() + 0.5) * pitch + j[0]
+    cx = margin + ((cell % nx).float() + 0.5) * pitch + j[1]
+    sig = gSig * (1 + 0.2 * (2 * torch.rand(K, generator=g, device=DEV)
+                             - 1))
+    yy = torch.arange(H, dtype=torch.float32, device=DEV)[None, :]
+    xx = torch.arange(W, dtype=torch.float32, device=DEV)[None, :]
+    A = (torch.exp(-(yy - cy[:, None]) ** 2 / (2 * sig[:, None] ** 2))
+         [:, :, None]
+         * torch.exp(-(xx - cx[:, None]) ** 2 / (2 * sig[:, None] ** 2))
+         [:, None, :])
+    A = A.masked_fill_(A < np.exp(-2.0), 0.0)
+    M = search_locations_dilate(A, radius=2).reshape(K, H * W)
+    A = A.reshape(K, H * W)
+    colors = greedy_color(overlap_adjacency(M))
+    order = torch.argsort(colors, stable=True)
+    sched = class_step_schedule(colors[order], block=64)
+    C = torch.clamp(torch.randn((K, T), generator=g, device=DEV), min=0)
+    Cc = C - C.mean(dim=1, keepdim=True)
+    V = (Cc @ Cc.T)[order][:, order].contiguous()
+    A, M = A[order].contiguous(), M[order].contiguous()
+    U = V @ A + 0.1 * torch.randn(A.shape, generator=g, device=DEV)
+    X = torch.clamp(A * (1 + 0.2 * torch.randn(A.shape, generator=g,
+                                               device=DEV)), min=0)
+    del A
+    return U, V, X, M, sched
+
+
+def window_masks(K, d, g, width=(12, 29), extra=2):
+    """Each row's support: a window of 12-28 columns at a random start and
+    a few random pixels, so a tile meets a handful of rows."""
+    a = torch.randint(0, d - width[0], (K,), generator=g, device=DEV)
+    w = torch.randint(*width, (K,), generator=g, device=DEV)
+    cols = torch.arange(d, device=DEV)
+    M = (cols >= a[:, None]) & (cols < (a + w)[:, None])
+    M[torch.arange(K, device=DEV)[:, None],
+      torch.randint(0, d, (K, extra), generator=g, device=DEV)] = True
+    return M
+
+
+def dense_problem(K, d, g, M):
+    X = torch.clamp(torch.randn((K, d), generator=g, device=DEV), min=0) * M
+    F = torch.randn((K, 32), generator=g, device=DEV)
+    V = F @ F.T / 32 + torch.eye(K, device=DEV)
+    U = torch.randn((K, d), generator=g, device=DEV) + 0.5
+    return U, V, X
+
+
+def phase2_hals_compact():
+    """K1's compacted body (masked calls) against the plain version:
+    (a) the k2000 cell's spatial call (K 2000, 512 x 512, lattice masks,
+    gSig 3, coloured, n_iter 10), timed beside its bytes bound; (b) the 2p
+    cell's (K 1000, gSig 2, TD 32); (c) a ragged d (3050) with K = 203;
+    (d) one tile at exactly COMPACT_ROWS active rows and one over it;
+    (e) an all-ones mask, every tile on the dense fallback; (f) gate zeros
+    and a row with V_kk = 0; (g) free steps whose rows share mask pixels
+    (the snapshot rule); (h) the unmasked temporal call, dense alone."""
+    cases = []
+    cap = hals_kernels.COMPACT_ROWS
+    for what, K, gSig in (("(a) k2000 cell", 2000, 3.0),
+                          ("(b) 2p cell", 1000, 2.0)):
+        U, V, X, M, sched = lattice_problem(K, gSig, seed=K)
+        ones = torch.ones(K, device=DEV)
+        cases.append(hals_case(f"compact {what}", U, V, X, ones, sched, M,
+                               10, 64, True, plain_reps=1,
+                               expect="compact"))
+        if K == 2000:
+            # (h): the same cell's temporal call, V = A^T A of these
+            # footprints, U = V C + noise over 8000 frames, unmasked
+            T = 8000
+            Vt = X @ X.T
+            colors = greedy_color((Vt != 0) & ~torch.eye(
+                K, dtype=torch.bool, device=DEV))
+            order = torch.argsort(colors, stable=True)
+            sched_t = class_step_schedule(colors[order], block=64)
+            Vt = Vt[order][:, order].contiguous()
+            Ct = torch.clamp(torch.randn((K, T), generator=torch.Generator(
+                device=DEV).manual_seed(8), device=DEV), min=0)
+            Ut = Vt @ Ct + 0.1 * torch.randn_like(Ct)
+            C0 = torch.clamp(Ct + 0.1 * torch.randn_like(Ct), min=0)
+            temporal = (Ut, Vt, C0, ones, sched_t)
+        del U, V, X, M
+        torch.cuda.empty_cache()
+
+    # (c) + (f): ragged d, K not a multiple of 8, gate zeros, V_kk = 0
+    g = torch.Generator(device=DEV).manual_seed(21)
+    K, d = 203, 3050
+    M = window_masks(K, d, g)
+    U, V, X = dense_problem(K, d, g, M)
+    V[5, :] = 0.0
+    V[:, 5] = 0.0
+    gate = torch.ones(K, device=DEV)
+    gate[::3] = 0.0
+    colors = greedy_color(overlap_adjacency(M))
+    order = torch.argsort(colors, stable=True)
+    sched = class_step_schedule(colors[order], block=64)
+    cases.append(hals_case(
+        "compact (c, f) ragged, gate zeros, V_kk = 0", U[order],
+        V[order][:, order].contiguous(), X[order], gate[order], sched,
+        M[order].contiguous(), 10, 64, True, expect="compact"))
+
+    # (d): tile 0 at exactly capacity, tile 1 one over, on the in-order
+    # block grid (non-free steps of 16 rows)
+    K, d = 200, 65536
+    TD, _ = hals_kernels._tiling(K, d, SM_COUNT)
+    M = window_masks(K, d, g)
+    M[:, :2 * TD] = False
+    M[:cap, 0] = True
+    M[:cap + 1, TD] = True
+    U, V, X = dense_problem(K, d, g, M)
+    ones = torch.ones(K, device=DEV)
+    grid16 = hals_kernels.block_grid_schedule(K, 16, DEV)
+    cases.append(hals_case("compact (d) a tile at capacity, one over", U, V,
+                           X, ones, grid16, M, 4, 16, True, expect=1))
+    # (e): an all-ones mask, K above capacity: every tile falls back
+    cases.append(hals_case("compact (e) all-ones mask", U, V, X, ones,
+                           grid16, torch.ones_like(M), 4, 16, True,
+                           expect="fallback"))
+    # (g): three classes of contiguous rows that ignore the overlaps, so
+    # free steps hold rows sharing mask pixels
+    K, d = 120, 3000
+    M = window_masks(K, d, g, width=(40, 81))
+    U, V, X = dense_problem(K, d, g, M)
+    classes = (torch.arange(K, device=DEV) * 3 // K).to(torch.int32)
+    sched = class_step_schedule(classes, block=64)
+    require(any(fr and bool((M[lo:hi].sum(dim=0) > 1).any())
+                for lo, hi, fr in hals_kernels._step_rows(
+                    sched, K, hals_kernels._rows_per_step(K, 64))),
+            "case (g) has no free step of overlapping rows")
+    ones = torch.ones(K, device=DEV)
+    cases.append(hals_case("compact (g) free steps of overlapping rows", U,
+                           V, X, ones, sched, M, 10, 64, True))
+    cases.append(hals_case("compact (h) unmasked temporal", *temporal,
+                           None, 4, 64,
+                           False))
     return cases
 
 
@@ -512,6 +768,7 @@ def phase2_kernels(K=192, H=256, W=256, T=2000):
         ("temporal block grid", Ut, Vt, C0, gate, sched_bg, None, 4, 16,
          False, 1))]
     cases += phase2_hals_edges()
+    cases += phase2_hals_compact()
     fit = cases[0]
     results["hals_sweeps"] = dict(
         max_abs_err=max(c["max_abs_err"] for c in cases), ms=fit["ms"],

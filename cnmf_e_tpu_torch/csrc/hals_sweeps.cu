@@ -9,11 +9,15 @@
 // start at 0 and stay 0) and rows frozen where gate_k == 0 or V_kk == 0.
 // A free step updates all its rows from one snapshot of X (rows of one
 // class do not interact); a non-free step updates its rows in order.
+// Column c of V_k . X reads only column c of X, so a CTA owns TD columns.
+// Two bodies share that tiling (TD from the wrapper):
 //
-// Bound on an H100: 2 K^2 d FP32 multiply-adds per sweep on the CUDA cores
-// (4.83 GFLOP at K = 192, d = 65,536: 0.072 ms at 67 TFLOP/s), against one
-// read of X, U and the mask and one write of X (0.05 ms at 3.35 TB/s). So
-// the sweeps are bound by FP32 FMAs, and the design keeps the FMA pipes fed:
+// The dense body, for unmasked calls (every temporal sweep) and for the
+// tiles the compacted body hands back. Bound on an H100: 2 K^2 d FP32
+// multiply-adds per sweep on the CUDA cores (4.83 GFLOP at K = 192,
+// d = 65,536: 0.072 ms at 67 TFLOP/s), against one read of X, U and the
+// mask and one write of X (0.05 ms at 3.35 TB/s). So it is bound by FP32
+// FMAs, and the design keeps the FMA pipes fed:
 //   * one CTA owns TD columns; its (K, TD) tile of X stays in shared memory
 //     for all sweeps and is read from and written to device memory once;
 //   * the step's residual R = U - V[rows] X is a register-tiled product:
@@ -44,6 +48,37 @@
 //     fills the CTA instead), and narrower only while a large K does not
 //     fit; V streams through shared memory in slices of KC rows of the
 //     Gram when the whole step slice does not fit, so there is no K cap.
+//
+// The compacted body, for masked calls (the spatial factor on its search
+// locations). In a tile only the rows whose mask touches its columns
+// contribute to V_k . X or change: every other row's entries are masked,
+// so they are 0 before and after. Search masks are sparse (a 512 x 512
+// field of 2000 neurons puts 3 of the 2000 rows in a 16-column tile on
+// average), so the multiply-adds fall to sum_t k_t^2 TD per sweep over the
+// tiles' active-row counts k_t, and the body is bound by bytes: one read
+// of the (K, d) mask and one write of the (K, d) output (2.6 GB at
+// K = 2000, d = 262,144: 0.8 ms at 3.35 TB/s), the active rows of X and U
+// beside them. The design does about that:
+//   * the CTA reads the tile's K x TD mask bytes once, 16 bytes a load
+//     where aligned, eight rows a thread in flight, and builds the
+//     ascending list of active rows with warp ballots and one prefix sum
+//     a batch of 2048 rows (the ballots are also the tile's row bitmap);
+//   * it stages only those rows (X with masked entries 0, U with masked
+//     entries -inf, the k_t x k_t sub-Gram V[act][:, act], cc and gate)
+//     and cuts the dense body's chunks of each schedule step to its active
+//     rows, once, so chunks that hold none cost nothing in the sweeps;
+//   * the sweeps run the dense body's chunks and arithmetic on those rows,
+//     so the result is the dense body's to the bit: each residual in the
+//     dense body's S partial FMA chains (ascending rows, one chain per
+//     residue of q % KC mod S) and its shuffle tree, the non-free
+//     correction in its P chains, the same epilogue; the rows left out only
+//     add exact zeros there. G adjacent lanes own a column and split a free
+//     chunk's rows (one snapshot); lane 0 runs an in-order chunk's rows.
+//     Columns do not interact, so only warp barriers;
+//   * it writes the whole tile in float4 stores, 0 in the inactive rows.
+//     A tile of more than kCap active rows (or non-empty chunks) is listed
+//     instead, and a dense launch of a few CTAs an SM walks the list; it
+//     exits at once when the list is empty. Nothing synchronises the host.
 // Everything is FP32 with IEEE division (no --use_fast_math).
 
 #include <cuda_runtime.h>
@@ -325,19 +360,17 @@ __device__ void chunk(float* Xs, float* Vs, float* Ds, float* Vb, float* ccs,
   __syncthreads();
 }
 
+// The dense body on one tile of TD columns: every row of the (K, TD) tile
+// of X in shared memory through every sweep.
 template <int TD>
-__global__ void __launch_bounds__(kThreads)
-hals_sweeps_kernel(const float* __restrict__ U, const float* __restrict__ V,
-                   const float* __restrict__ X, float* __restrict__ out,
-                   const uint8_t* __restrict__ mask,
-                   const float* __restrict__ gate,
-                   const int* __restrict__ starts,
-                   const int* __restrict__ ends,
-                   const int* __restrict__ free_,
-                   const int* __restrict__ n_steps_ptr, int K, int d,
-                   int n_iter, int relu, int B, int KC) {
+__device__ __forceinline__ void dense_tile(
+    float* smem, const float* __restrict__ U, const float* __restrict__ V,
+    const float* __restrict__ X, float* __restrict__ out,
+    const uint8_t* __restrict__ mask, const float* __restrict__ gate,
+    const int* __restrict__ starts, const int* __restrict__ ends,
+    const int* __restrict__ free_, const int* __restrict__ n_steps_ptr,
+    int K, int d, int n_iter, int relu, int B, int KC, int tile) {
   using L = Layout<TD>;
-  extern __shared__ __align__(16) float smem[];
   float* Vs = smem;                                  // (KC, kVsStride)
   float* Xs = Vs + KC * kVsStride;                   // (K, TD) tile of X
   float* Ds = Xs + round4(K * TD);                   // (kRowsSeq, TD)
@@ -348,7 +381,7 @@ hals_sweeps_kernel(const float* __restrict__ U, const float* __restrict__ V,
   Args a;
   a.U = U; a.V = V; a.mask = mask; a.gate = gate;
   a.K = K; a.d = d; a.relu = relu; a.KC = KC;
-  a.tile0 = blockIdx.x * TD;
+  a.tile0 = tile * TD;
   a.ncol = min(TD, d - a.tile0);
   a.vec = (d % 4 == 0) && (reinterpret_cast<uintptr_t>(U) % 16 == 0)
           && (!mask || reinterpret_cast<uintptr_t>(mask) % 4 == 0);
@@ -428,15 +461,402 @@ hals_sweeps_kernel(const float* __restrict__ U, const float* __restrict__ V,
   }
 }
 
+// Unmasked calls: one CTA a tile.
+template <int TD>
+__global__ void __launch_bounds__(kThreads)
+hals_sweeps_kernel(const float* __restrict__ U, const float* __restrict__ V,
+                   const float* __restrict__ X, float* __restrict__ out,
+                   const uint8_t* __restrict__ mask,
+                   const float* __restrict__ gate,
+                   const int* __restrict__ starts,
+                   const int* __restrict__ ends,
+                   const int* __restrict__ free_,
+                   const int* __restrict__ n_steps_ptr, int K, int d,
+                   int n_iter, int relu, int B, int KC) {
+  extern __shared__ __align__(16) float smem[];
+  dense_tile<TD>(smem, U, V, X, out, mask, gate, starts, ends, free_,
+                 n_steps_ptr, K, d, n_iter, relu, B, KC, blockIdx.x);
+}
+
+// Masked calls, the tiles the compacted body handed back: work[0] tiles
+// listed at work[1..], walked by a grid of a few CTAs an SM (none: every
+// CTA returns at once).
+template <int TD>
+__global__ void __launch_bounds__(kThreads)
+hals_sweeps_fallback_kernel(
+    const float* __restrict__ U, const float* __restrict__ V,
+    const float* __restrict__ X, float* __restrict__ out,
+    const uint8_t* __restrict__ mask, const float* __restrict__ gate,
+    const int* __restrict__ starts, const int* __restrict__ ends,
+    const int* __restrict__ free_, const int* __restrict__ n_steps_ptr,
+    const int* __restrict__ work, int K, int d, int n_iter, int B, int KC) {
+  extern __shared__ __align__(16) float smem[];
+  const int n = work[0];
+  for (int t = blockIdx.x; t < n; t += gridDim.x) {
+    if (t != blockIdx.x) __syncthreads();    // the last tile is written out
+    dense_tile<TD>(smem, U, V, X, out, mask, gate, starts, ends, free_,
+                   n_steps_ptr, K, d, n_iter, 1, B, KC, work[1 + t]);
+  }
+}
+
+// ---------------------------------------------------------------------- //
+// The compacted body.
+// ---------------------------------------------------------------------- //
+constexpr int kCap = 64;                    // active rows a tile can hold
+constexpr int kCapStride = kCap + 1;        // row stride of the sub-Gram
+constexpr int kScan = 72;                   // 64 counts, n_act, n_chunks
+constexpr int kPasses = 8;                  // rows of a thread per batch
+static_assert(kThreads == 256, "the row scan assumes 8 warps of 32");
+
+__host__ __device__ constexpr size_t compact_smem(int TD, int K) {
+  return sizeof(float) * ((size_t)3 * kCap * TD + kCap * kCapStride
+                          + 2 * kCap)
+      + sizeof(int) * ((size_t)4 * kCap + kScan + 2 * ((K + 31) / 32));
+}
+
+// Whether row m[0, ncol) of the mask holds any set byte: 16-, 8- or
+// 4-byte loads where the whole aligned tile is there (vec), else bytes.
+template <int TD>
+__device__ __forceinline__ bool row_any(const uint8_t* __restrict__ m,
+                                        int ncol, bool vec) {
+  if constexpr (TD % 16 == 0) {
+    if (vec) {
+      const uint4* p = reinterpret_cast<const uint4*>(m);
+      uint4 t = p[0];
+#pragma unroll
+      for (int j = 1; j < TD / 16; ++j) {
+        const uint4 u = p[j];
+        t.x |= u.x; t.y |= u.y; t.z |= u.z; t.w |= u.w;
+      }
+      return (t.x | t.y | t.z | t.w) != 0u;
+    }
+  } else if constexpr (TD == 8) {
+    if (vec) {
+      const uint2 t = *reinterpret_cast<const uint2*>(m);
+      return (t.x | t.y) != 0u;
+    }
+  } else if constexpr (TD == 4) {
+    if (vec) return *reinterpret_cast<const unsigned*>(m) != 0u;
+  }
+  unsigned acc = 0;
+  for (int c = 0; c < ncol; ++c) acc |= m[c];
+  return acc != 0u;
+}
+
+// The first index of rows[0, n) (ascending) that is >= v.
+__device__ __forceinline__ int first_at_least(const int* rows, int n, int v) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (rows[mid] < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// Masked calls, one CTA a tile: the rows whose mask touches the tile run
+// the schedule in shared memory; every other row is written as 0. A tile
+// of more than kCap active rows, or of more than kCap non-empty chunks of
+// the dense body's, goes to the list of work for the fallback launch.
+template <int TD>
+__global__ void __launch_bounds__(kThreads)
+hals_sweeps_compact_kernel(
+    const float* __restrict__ U, const float* __restrict__ V,
+    const float* __restrict__ X, float* __restrict__ out,
+    const uint8_t* __restrict__ mask, const float* __restrict__ gate,
+    const int* __restrict__ starts, const int* __restrict__ ends,
+    const int* __restrict__ free_, const int* __restrict__ n_steps_ptr,
+    int* __restrict__ work, unsigned long long* __restrict__ stats, int K,
+    int d, int n_iter, int B, int KC) {
+  using L = Layout<TD>;
+  extern __shared__ __align__(16) float smem[];
+  float* Xc = smem;                          // (kCap, TD) active rows of X
+  float* Uc = Xc + kCap * TD;                // (kCap, TD) of U, -inf masked
+  float* Dc = Uc + kCap * TD;                // (kCap, TD) a chunk's rows
+  float* Vc = Dc + kCap * TD;                // (kCap, kCapStride) sub-Gram
+  float* ccc = Vc + kCap * kCapStride;
+  float* gtc = ccc + kCap;
+  int* rows = reinterpret_cast<int*>(gtc + kCap);   // active rows, ascending
+  int* rmod = rows + kCap;                   // rows[q] % KC
+  int* chunks = rmod + kCap;                 // per chunk: ca | cb << 8 |
+                                             // free << 16 | nr << 17, r0
+  int* scan = chunks + 2 * kCap;
+  const int nw = (K + 31) >> 5;
+  unsigned* bits = reinterpret_cast<unsigned*>(scan + kScan);  // row bitmap
+  int* woff = reinterpret_cast<int*>(bits + nw);   // active rows before word
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int tile0 = blockIdx.x * TD, ncol = min(TD, d - tile0);
+  constexpr int VW = TD < 16 ? TD : 16;
+  const bool vec = ncol == TD && d % VW == 0
+      && reinterpret_cast<uintptr_t>(mask) % VW == 0;
+
+  // the active rows, in ascending order: rows k0 + p * 256 + tid of a batch
+  // are flagged in bit p, a warp ballot per pass gives its 32 rows' word of
+  // the bitmap, and one prefix sum over the batch's 64 words, in row order,
+  // places each active row
+  int n_act = 0;
+  for (int k0 = 0; k0 < K; k0 += kPasses * kThreads) {
+    unsigned f = 0;
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {
+      const int k = k0 + p * kThreads + tid;
+      if (k < K && row_any<TD>(mask + (size_t)k * d + tile0, ncol, vec))
+        f |= 1u << p;
+    }
+    unsigned b[kPasses];
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {
+      b[p] = __ballot_sync(0xffffffffu, (f >> p) & 1u);
+      if (lane == 0) scan[p * 8 + warp] = __popc(b[p]);
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const int c0 = scan[2 * lane], c1 = scan[2 * lane + 1];
+      int incl = c0 + c1;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += t;
+      }
+      const int ex = n_act + incl - c0 - c1;
+      scan[2 * lane] = ex;
+      scan[2 * lane + 1] = ex + c0;
+      if (lane == 31) scan[64] = n_act + incl;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {
+      const int w = (k0 >> 5) + p * 8 + warp;
+      const int off = scan[p * 8 + warp];
+      if (lane == 0 && w < nw) {
+        bits[w] = b[p];
+        woff[w] = off;
+      }
+      if ((f >> p) & 1u) {
+        const int pos = off + __popc(b[p] & below);
+        if (pos < kCap) rows[pos] = k0 + p * kThreads + tid;
+      }
+    }
+    n_act = scan[64];
+    __syncthreads();                         // scan is read; the next may write
+  }
+
+  // the dense body's chunks on this tile, in order: step j covers rows
+  // [s, hi) (the same window), split into chunks of kRowsFree (free) or
+  // kRowsSeq (in order) rows from s; a chunk keeps its active rows
+  // [ca, cb) of the list, its first row r0 and its row count nr
+  int n_ch = 0;
+  if (n_act <= kCap) {
+    if (warp == 0) {
+      const int n_steps = *n_steps_ptr;
+      const int Kp = ((K + B - 1) / B) * B;
+      int cnt = 0;
+      for (int j0 = 0; j0 < n_steps; j0 += 32) {
+        const int j = j0 + lane;
+        int s = 0, hi = 0, fr = 0, mine = 0;
+        if (j < n_steps) {
+          s = starts[j];
+          const int sc = max(min((s / 8) * 8, Kp - B), 0);
+          hi = min(min(sc + B, ends[j]), K);
+          fr = free_[j] != 0;
+        }
+        const int cap = fr ? kRowsFree : kRowsSeq;
+        for (int r0 = s; r0 < hi; r0 += cap)
+          mine += first_at_least(rows, n_act, r0)
+              < first_at_least(rows, n_act, min(r0 + cap, hi));
+        int incl = mine;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int t = __shfl_up_sync(0xffffffffu, incl, o);
+          if (lane >= o) incl += t;
+        }
+        int pos = cnt + incl - mine;
+        for (int r0 = s; r0 < hi; r0 += cap) {
+          const int nr = min(cap, hi - r0);
+          const int ca = first_at_least(rows, n_act, r0);
+          const int cb = first_at_least(rows, n_act, r0 + nr);
+          if (ca < cb && pos < kCap) {
+            chunks[2 * pos] = ca | (cb << 8) | (fr << 16) | (nr << 17);
+            chunks[2 * pos + 1] = r0;
+          }
+          pos += ca < cb;
+        }
+        cnt += __shfl_sync(0xffffffffu, incl, 31);
+      }
+      if (lane == 0) scan[65] = cnt;
+    }
+    __syncthreads();
+    n_ch = scan[65];
+  }
+  if (n_act > kCap || n_ch > kCap) {
+    if (tid == 0) {
+      work[1 + atomicAdd(work, 1)] = blockIdx.x;
+      atomicAdd(stats + 1, 1ull);
+    }
+    return;
+  }
+
+  // stage the active rows: X with masked entries 0, U with masked entries
+  // -inf (the relu a mask implies turns their update into exactly 0), the
+  // sub-Gram, and each row's cc and gate from V's diagonal
+  for (int e = tid; e < n_act * TD; e += kThreads) {
+    const int i = e / TD, c = e - i * TD;
+    const size_t g = (size_t)rows[i] * d + tile0 + c;
+    float x = 0.f, u = kNegInf;
+    if (c < ncol && mask[g]) {
+      x = X[g];
+      u = U[g];
+    }
+    Xc[e] = x;
+    Uc[e] = u;
+  }
+  for (int e = tid; e < n_act * n_act; e += kThreads) {
+    const int i = e / n_act, j = e - i * n_act;
+    Vc[i * kCapStride + j] = V[(size_t)rows[i] * K + rows[j]];
+  }
+  for (int i = tid; i < n_act; i += kThreads) {
+    const int k = rows[i];
+    const float vkk = V[(size_t)k * K + k];
+    ccc[i] = fmaxf(vkk, 1e-12f);
+    gtc[i] = (gate[k] > 0.f && vkk > 0.f) ? 1.f : 0.f;
+    rmod[i] = k % KC;
+  }
+  __syncthreads();
+
+  // the sweeps, in the dense body's arithmetic, so the result is the same
+  // to the bit: G adjacent lanes own a column (columns do not interact).
+  // A row's residual is the dense body's dot: S partial FMA chains in
+  // ascending row order, Gram column q in chain (q % KC) % S, added as
+  // its shuffle tree adds them (S from the chunk's row count as there);
+  // the rows left out add exact zeros there. A free chunk's rows are split
+  // over the G lanes, go to Dc, and into the tile after the group's last
+  // read. An in-order chunk stages its block residuals in Dc, then lane 0
+  // updates its rows in order, each corrected by the earlier rows'
+  // changes in P partial chains, (j - r0) % P, and the same tree.
+  constexpr int G = kThreads / TD < 32 ? kThreads / TD : 32;
+  constexpr int P = L::P;
+  const int c = tid / G, g = tid % G;
+  auto residual = [&](int i, int S) {        // V[row i] . X, column c
+    const float* vr = Vc + i * kCapStride;
+    float t[8];
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      t[ks] = 0.f;
+      if (ks < S)
+        for (int q = 0; q < n_act; ++q)
+          if ((rmod[q] & (S - 1)) == ks)
+            t[ks] = fmaf(vr[q], Xc[q * TD + c], t[ks]);
+    }
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1)
+      if (o < S)
+#pragma unroll
+        for (int ks = 0; ks < o; ++ks) t[ks] += t[ks + o];
+    return t[0];
+  };
+  if (c < TD) {                              // whole warps when TD < 8
+    for (int it = 0; it < n_iter; ++it) {
+      for (int e = 0; e < n_ch; ++e) {
+        const int ch = chunks[2 * e], r0 = chunks[2 * e + 1];
+        const int ca = ch & 0xff, cb = (ch >> 8) & 0xff, nr = ch >> 17;
+        // the dense body's K split: RM = 1 and few rows
+        const bool rm1 = !(L::RMAX >= 4 && nr > 2 * L::RG)
+            && !(L::RMAX >= 2 && nr > L::RG);
+        int S = 1;
+        while (rm1 && S < 8 && S < L::LR && 2 * S * nr <= L::RG
+               && 16 * S <= KC)
+          S *= 2;
+        if ((ch >> 16) & 1) {                // free: from one snapshot
+          for (int i = ca + g; i < cb; i += G) {
+            if (gtc[i] == 0.f) continue;     // frozen row
+            float xn = Xc[i * TD + c]
+                + (Uc[i * TD + c] - residual(i, S)) / ccc[i];
+            if (xn < 0.f) xn = 0.f;
+            Dc[i * TD + c] = xn;
+          }
+          __syncwarp();
+          for (int i = ca + g; i < cb; i += G)
+            if (gtc[i] != 0.f) Xc[i * TD + c] = Dc[i * TD + c];
+        } else {                             // in order
+          for (int i = ca + g; i < cb; i += G)
+            Dc[i * TD + c] = Uc[i * TD + c] - residual(i, S);
+          __syncwarp();
+          if (g == 0) {
+            for (int i = ca; i < cb; ++i) {
+              float tp[P];
+#pragma unroll
+              for (int p = 0; p < P; ++p) tp[p] = 0.f;
+              for (int j = ca; j < i; ++j) {
+                const int p = (rows[j] - r0) % P;
+                tp[p] = fmaf(Vc[i * kCapStride + j], Dc[j * TD + c], tp[p]);
+              }
+#pragma unroll
+              for (int o = P / 2; o > 0; o >>= 1)
+#pragma unroll
+                for (int p = 0; p < o; ++p) tp[p] += tp[p + o];
+              const float x0 = Xc[i * TD + c];
+              float xn = x0;
+              if (gtc[i] != 0.f) {
+                xn = x0 + (Dc[i * TD + c] - tp[0]) / ccc[i];
+                if (xn < 0.f) xn = 0.f;
+              }
+              Xc[i * TD + c] = xn;
+              Dc[i * TD + c] = xn - x0;      // the change, for later rows
+            }
+          }
+        }
+        __syncwarp();
+      }
+    }
+  }
+  __syncthreads();
+
+  // the whole tile: the active rows' values, 0 in every other row (all of
+  // whose entries are masked)
+  const bool vec_o = TD % 4 == 0 && d % 4 == 0
+      && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec_o) {
+    for (int e = 4 * tid; e < K * TD; e += 4 * kThreads) {
+      const int k = e / TD, c4 = e - k * TD;
+      if (c4 >= ncol) continue;
+      const unsigned w = bits[k >> 5], m = 1u << (k & 31);
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (w & m) {
+        const int i = woff[k >> 5] + __popc(w & (m - 1u));
+        v = *reinterpret_cast<const float4*>(Xc + i * TD + c4);
+      }
+      *reinterpret_cast<float4*>(out + (size_t)k * d + tile0 + c4) = v;
+    }
+  } else {
+    for (int e = tid; e < K * TD; e += kThreads) {
+      const int k = e / TD, c1 = e - k * TD;
+      if (c1 >= ncol) continue;
+      const unsigned w = bits[k >> 5], m = 1u << (k & 31);
+      float v = 0.f;
+      if (w & m) v = Xc[(woff[k >> 5] + __popc(w & (m - 1u))) * TD + c1];
+      out[(size_t)k * d + tile0 + c1] = v;
+    }
+  }
+  if (tid == 0) {
+    atomicAdd(stats, 1ull);
+    atomicAdd(stats + 2, (unsigned long long)n_act);
+  }
+}
+
+size_t dense_smem(int K, int TD, int KC) {
+  return sizeof(float) *
+      ((size_t)KC * kVsStride + round4(K * TD) + round4(kRowsSeq * TD)
+       + kRowsSeq * kVbStride + 2 * kRowsSeq);
+}
+
 template <int TD>
 int launch_td(const float* U, const float* V, const float* X, float* out,
               const uint8_t* mask, const float* gate, const int* starts,
               const int* ends, const int* fr, const int* n_steps, int K,
               int d, int n_iter, int relu, int B, int KC,
               cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      ((size_t)KC * kVsStride + round4(K * TD) + round4(kRowsSeq * TD)
-       + kRowsSeq * kVbStride + 2 * kRowsSeq);
+  const size_t smem = dense_smem(K, TD, KC);
   cudaError_t err = cudaFuncSetAttribute(
       hals_sweeps_kernel<TD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -445,6 +865,43 @@ int launch_td(const float* U, const float* V, const float* X, float* out,
   hals_sweeps_kernel<TD><<<grid, kThreads, smem, stream>>>(
       U, V, X, out, mask, gate, starts, ends, fr, n_steps, K, d, n_iter,
       relu, B, KC);
+  return (int)cudaGetLastError();
+}
+
+template <int TD>
+int launch_masked_td(const float* U, const float* V, const float* X,
+                     float* out, const uint8_t* mask, const float* gate,
+                     const int* starts, const int* ends, const int* fr,
+                     const int* n_steps, int* work,
+                     unsigned long long* stats, int K, int d, int n_iter,
+                     int B, int KC, int n_sm, cudaStream_t stream) {
+  const int grid = (d + TD - 1) / TD;
+  const size_t csmem = compact_smem(TD, K);
+  cudaError_t err = cudaFuncSetAttribute(
+      hals_sweeps_compact_kernel<TD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)csmem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(work, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return (int)err;
+  hals_sweeps_compact_kernel<TD><<<grid, kThreads, csmem, stream>>>(
+      U, V, X, out, mask, gate, starts, ends, fr, n_steps, work, stats, K, d,
+      n_iter, B, KC);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const size_t smem = dense_smem(K, TD, KC);
+  err = cudaFuncSetAttribute(hals_sweeps_fallback_kernel<TD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, hals_sweeps_fallback_kernel<TD>, kThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int fgrid = max(1, min(grid, per_sm * n_sm));
+  hals_sweeps_fallback_kernel<TD><<<fgrid, kThreads, smem, stream>>>(
+      U, V, X, out, mask, gate, starts, ends, fr, n_steps, work, K, d,
+      n_iter, B, KC);
   return (int)cudaGetLastError();
 }
 
@@ -464,6 +921,31 @@ extern "C" int hals_sweeps_launch(const float* U, const float* V,
   case N:                                                                \
     return launch_td<N>(U, V, X, out, mask, gate, starts, ends, fr,      \
                         n_steps, K, d, n_iter, relu, B, KC, s);
+  switch (TD) {
+    HALS_TD(64) HALS_TD(32) HALS_TD(16) HALS_TD(8) HALS_TD(4) HALS_TD(2)
+    HALS_TD(1)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef HALS_TD
+}
+
+// A masked call (relu): the compacted body on every tile, then the dense
+// body on the tiles it listed in work (d / TD + 1 ints); stats (3 int64)
+// accumulate the compacted tiles, the listed tiles and the compacted
+// tiles' active rows. n_sm sizes the fallback's grid.
+extern "C" int hals_sweeps_masked_launch(
+    const float* U, const float* V, const float* X, float* out,
+    const uint8_t* mask, const float* gate, const int* starts,
+    const int* ends, const int* fr, const int* n_steps, int* work,
+    unsigned long long* stats, int K, int d, int n_iter, int B, int TD,
+    int KC, int n_sm, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+#define HALS_TD(N)                                                        \
+  case N:                                                                 \
+    return launch_masked_td<N>(U, V, X, out, mask, gate, starts, ends, fr, \
+                               n_steps, work, stats, K, d, n_iter, B, KC,  \
+                               n_sm, s);
   switch (TD) {
     HALS_TD(64) HALS_TD(32) HALS_TD(16) HALS_TD(8) HALS_TD(4) HALS_TD(2)
     HALS_TD(1)

@@ -10,8 +10,11 @@ A failed build raises; nothing falls back to another implementation.
 
 ``LAUNCHES`` counts, per kernel, the launches the wrappers made; each
 wrapper adds one right after its launch succeeds (the OASIS solve entry,
-which launches three kernels, one to each). ``ENTRY_CALLS`` counts the
-calls of each C entry point.
+which launches three kernels, one to each; the masked HALS entry, which
+launches two, two to ``hals_sweeps``). ``ENTRY_CALLS`` counts the calls of
+each C entry point. ``device_counters`` holds int64 tensors that kernels
+add to on the device (the HALS compacted body's tile counts);
+``reset_launch_counts`` zeroes them with the host counts.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ KERNELS = ("hals_sweeps", "oasis_chunk_pools", "oasis_pool_merge",
 LAUNCHES = {name: 0 for name in KERNELS}
 # calls of each C entry point, beside the per-kernel counts
 ENTRY_CALLS: dict = {}
+# (name, device) -> int64 tensor that kernels add to on that device
+_COUNTERS: dict = {}
 
 _lock = threading.Lock()
 _lib = None
@@ -52,6 +57,9 @@ _SIGNATURES = {
     # U, V, X, out, mask, gate, starts, ends, free, n_steps, K, d, n_iter,
     # relu, B, TD, KC, stream
     "hals_sweeps_launch": [_P] * 10 + [_I] * 7 + [_P],
+    # U, V, X, out, mask, gate, starts, ends, free, n_steps, work, stats, K,
+    # d, n_iter, B, TD, KC, n_sm, stream
+    "hals_sweeps_masked_launch": [_P] * 12 + [_I] * 7 + [_P],
     # vinit, g, smin, K, nc, L, scratch, v, w, ts, ln, n, stream
     "oasis_chunk_pools_launch": [_P] * 3 + [_I] * 3 + [_P] * 6 + [_P],
     # v0, w0, ts0, l0, n_in, g, smin, K, nc, L, v, w, ts, ln, n, stream
@@ -78,6 +86,24 @@ def reset_launch_counts() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
     ENTRY_CALLS.clear()
+    with _lock:
+        for t in _COUNTERS.values():
+            t.zero_()
+
+
+def device_counters(name: str, device, n: int):
+    """The (n,) int64 counters ``name`` on ``device``, made as zeros on
+    first use; kernels add to them, and reading them synchronises."""
+    import torch
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    with _lock:
+        t = _COUNTERS.get((name, device))
+        if t is None:
+            t = torch.zeros(n, dtype=torch.int64, device=device)
+            _COUNTERS[(name, device)] = t
+        return t
 
 
 def _nvcc() -> str:

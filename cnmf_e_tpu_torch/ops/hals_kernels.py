@@ -5,7 +5,10 @@ dispatch (port of ``cnmf_e_tpu/ops/pallas_hals.py``).
 a row-major factor X (K, d) given U (K, d) and the symmetric Gram V (K, K)
 — both HALS factors (``HALS_spatial.m:26-46``, ``HALS_temporal.m:58-107``)
 go through it. CUDA tensors launch ``csrc/hals_sweeps.cu``; CPU tensors run
-:func:`hals_sweeps_reference`.
+:func:`hals_sweeps_reference`. A masked call launches the kernel's
+compacted body, which runs each column tile on the rows its mask touches,
+and the dense body on the tiles it could not hold (more than
+:data:`COMPACT_ROWS` active rows); :func:`compact_stats` counts them.
 """
 
 from __future__ import annotations
@@ -15,9 +18,14 @@ from typing import Optional, Tuple
 
 import torch
 
-from cnmf_e_tpu_torch.cuda_build import check_cuda, launch
+from cnmf_e_tpu_torch.cuda_build import check_cuda, device_counters, launch
 
 _SMEM_CAP = 232448          # opt-in shared memory per block on Hopper
+# active rows a column tile of the compacted body holds (kCap in
+# csrc/hals_sweeps.cu); a tile with more runs the dense body
+COMPACT_ROWS = 64
+_STATS = "hals_compact"     # device counters: compacted tiles, fallback
+                            # tiles, active rows of the compacted tiles
 
 
 def _rows_per_step(K: int, block: int) -> int:
@@ -183,8 +191,29 @@ def hals_sweeps(U: torch.Tensor, V: torch.Tensor, X: torch.Tensor,
     out = torch.empty_like(X)
     if K == 0 or d == 0:
         return out
-    TD, KC = _tiling(K, d, _sm_count(X.device.index))
-    launch("hals_sweeps", X.device, U, V, X, out, mask, gate, starts, ends,
-           free, n_steps, K, d, n_iter, int(relu), _rows_per_step(K, block),
-           TD, KC)
+    n_sm = _sm_count(X.device.index)
+    TD, KC = _tiling(K, d, n_sm)
+    B = _rows_per_step(K, block)
+    if mask is None:
+        launch("hals_sweeps", X.device, U, V, X, out, mask, gate, starts,
+               ends, free, n_steps, K, d, n_iter, int(relu), B, TD, KC)
+        return out
+    # the compacted body's list of tiles for the dense body: a count, then
+    # up to one entry a tile
+    work = torch.empty(-(-d // TD) + 1, dtype=torch.int32, device=X.device)
+    launch(("hals_sweeps", "hals_sweeps"), X.device, U, V, X, out, mask,
+           gate, starts, ends, free, n_steps, work,
+           device_counters(_STATS, X.device, 3), K, d, n_iter, B, TD, KC,
+           n_sm, entry="hals_sweeps_masked_launch")
     return out
+
+
+def compact_stats(device) -> dict:
+    """The masked calls' tile counts on ``device`` since the last
+    :func:`cnmf_e_tpu_torch.cuda_build.reset_launch_counts`: tiles the
+    compacted body ran (``compact_tiles``), tiles it handed to the dense
+    body (``fallback_tiles``), and the compacted tiles' active rows
+    (``active_rows``). Reads the device, so it synchronises."""
+    vals = device_counters(_STATS, device, 3).tolist()
+    return dict(zip(("compact_tiles", "fallback_tiles", "active_rows"),
+                    vals))

@@ -49,6 +49,7 @@ from __future__ import annotations
 import functools
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from cnmf_e_tpu_torch.cuda_build import check_cuda, launch, load_library
@@ -95,13 +96,35 @@ def _uninit_pools(shape, device):
 # plain versions: one stack per lane, all lanes in lockstep
 # --------------------------------------------------------------------- #
 def _merge_top(v, w, ln, n, logg, smin, cand):
-    """Merge the top two pools of lanes ``cand`` while they violate."""
-    while cand.numel():
+    """Merge the top two pools of lanes ``cand`` while they violate. CPU
+    tensors run through NumPy views of their memory: the same float32
+    arithmetic and torch's exp on the same lengths, so the same bits, at a
+    fraction of torch's per-call cost on a few dozen lanes."""
+    if v.device.type == "cpu":
+        v, w, ln, n, logg, smin, cand = (
+            x.numpy() for x in (v, w, ln, n, logg, smin, cand))
+
+        def clamp0(x):
+            return np.maximum(x, x.dtype.type(0))
+
+        def exp(x):
+            return torch.exp(torch.from_numpy(x)).numpy()
+
+        def f32(x):
+            return x.astype(np.float32)
+    else:
+        def clamp0(x):
+            return torch.clamp(x, min=0)
+
+        def f32(x):
+            return x.to(_f32)
+        exp = torch.exp
+    while len(cand):
         nl = n[cand]
-        p = torch.clamp(nl - 2, min=0)
-        q = torch.clamp(nl - 1, min=0)
-        gl = torch.exp(logg[cand] * ln[cand, p].to(_f32))
-        vp = torch.clamp(v[cand, p] / w[cand, p], min=0.0)
+        p = clamp0(nl - 2)
+        q = clamp0(nl - 1)
+        gl = exp(logg[cand] * f32(ln[cand, p]))
+        vp = clamp0(v[cand, p] / w[cand, p])
         vq = v[cand, q] / w[cand, q]
         viol = (nl >= 2) & (vq < vp * gl + smin[cand])
         cand, p, q, gl = cand[viol], p[viol], q[viol], gl[viol]

@@ -52,9 +52,10 @@ def cuda_ms(fn, reps: int = 7) -> float:
 
 
 def kernel_ms(fn, reps: int = 7) -> float:
-    """Median device milliseconds of the K1 kernel over ``reps`` calls of
-    ``fn``, by torch.profiler: the kernel alone, without the wrapper's host
-    time, which CUDA events around one short call also count."""
+    """Median device milliseconds of the K1 kernels over ``reps`` calls of
+    ``fn``, by torch.profiler: the kernels alone (a masked call's compacted
+    body and dense fallback summed), without the wrapper's host time,
+    which CUDA events around one short call also count."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -64,12 +65,15 @@ def kernel_ms(fn, reps: int = 7) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        times = [(e.time_range.end - e.time_range.start) / 1e3
-                 for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "hals_sweeps_kernel" in e.name]
-        if len(times) == reps:
-            return statistics.median(times)
+        events = sorted((e.time_range.start, e.time_range.end)
+                        for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and "hals_sweeps_" in e.name)
+        times = [(b - a) / 1e3 for a, b in events]
+        if times and len(times) % reps == 0:
+            per = len(times) // reps
+            return statistics.median(sum(times[i:i + per])
+                                     for i in range(0, len(times), per))
     raise SystemExit(f"k1_costs: profiled {len(times)} K1 kernels, not "
                      f"{reps}")
 

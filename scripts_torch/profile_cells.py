@@ -100,9 +100,9 @@ def main():
     busy_ms = busy_us / 1e3
     table = prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=25)
-    # the port's kernels, by their names in csrc/ (K6's two bodies both
-    # match ring_stencil_; K5 and K7 share one)
-    ours = {k: [0, 0.0] for k in ("hals_sweeps_kernel",
+    # the port's kernels, by their names in csrc/ (K1's three bodies all
+    # match hals_sweeps_, K6's two ring_stencil_; K5 and K7 share one)
+    ours = {k: [0, 0.0] for k in ("hals_sweeps_",
                                   "oasis_chunk_pools_kernel",
                                   "oasis_pool_merge_kernel",
                                   "oasis_reconstruct_kernel",

@@ -10,20 +10,29 @@ across the schedules the CUDA kernel tells apart (free class steps, the
 in-order block grid, the overflow fallback that mixes both; K from 1 to
 192, d from 50 to 3050, gate zeros, mask on and off); the full
 ``hals_spatial``/``hals_temporal`` updates against the JAX functions with
-``colored=True``, the only order the port runs.
+``colored=True``, the only order the port runs. The identity the CUDA
+kernel's compacted body rests on (a masked call, column tile by column
+tile, equals the same sweeps on only the tile's active rows, each step cut
+to them) is held on the plain version at 1e-5 (1 + |x|); and the kernel
+names stay readable by the benchmark's ``kernels_ms``.
 """
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from benchmark.metrics.kernels_ms import stems
 from cnmf_e_tpu.ops import coloring as jax_coloring
 from cnmf_e_tpu.ops import hals as jax_hals
 from cnmf_e_tpu.ops.pallas_hals import hals_sweeps_rows_pallas
-from cnmf_e_tpu_torch.ops import coloring
+from cnmf_e_tpu_torch import cuda_build
+from cnmf_e_tpu_torch.ops import coloring, hals_kernels
 from cnmf_e_tpu_torch.ops.hals import hals_spatial, hals_temporal
-from cnmf_e_tpu_torch.ops.hals_kernels import (block_grid_schedule,
+from cnmf_e_tpu_torch.ops.hals_kernels import (_rows_per_step, _step_rows,
+                                               block_grid_schedule,
                                                hals_sweeps_reference)
 from tests.test_pallas_hals import _gs_oracle
 
@@ -225,3 +234,127 @@ def test_plain_matches_pallas_across_schedules(K, d, kind, masked,
         mask=None if mask is None else torch.tensor(mask), n_iter=3,
         block=block, relu=relu).numpy()
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+def _tile_by_tile(U, V, X, gate, sched, mask, n_iter, block, TD):
+    """The masked sweeps as the compacted body runs them: per tile of TD
+    columns, the plain version on the rows whose mask touches the tile
+    (ascending), with each schedule step cut to those rows; every other
+    row 0."""
+    K, d = X.shape
+    steps = _step_rows(sched, K, _rows_per_step(K, block))
+    out = torch.zeros_like(X)
+    for t0 in range(0, d, TD):
+        cols = slice(t0, min(t0 + TD, d))
+        act = torch.nonzero(mask[:, cols].any(dim=1)).flatten()
+        if len(act) == 0:
+            continue
+        sub = [(ia, ib, fr) for lo, hi, fr in steps
+               for ia, ib in [(int(torch.searchsorted(act, lo)),
+                               int(torch.searchsorted(act, max(hi, lo))))]
+               if ia < ib]
+        i32 = dict(dtype=torch.int32)
+        sub_sched = (torch.tensor([s[0] for s in sub], **i32),
+                     torch.tensor([s[1] for s in sub], **i32),
+                     torch.tensor([s[2] for s in sub], **i32),
+                     torch.tensor(len(sub), **i32))
+        # block = the active-row count: one window holds them all, so a
+        # step covers exactly [ia, ib)
+        out[act, cols] = hals_sweeps_reference(
+            U[act, cols], V[act][:, act], X[act, cols], gate[act],
+            sub_sched, mask[act, cols], n_iter=n_iter, block=len(act),
+            relu=True)
+    return out
+
+
+@pytest.mark.parametrize("TD,d,kind,gate_zeros", [
+    (16, 117, "coloured", False),
+    (64, 117, "coloured", True),
+    (32, 117, "block grid", True),
+    (64, 203, "mixed", True),
+    (16, 203, "overlapping", True),
+    (32, 300, "overlapping", False),
+])
+def test_masked_sweeps_equal_tile_by_tile_on_active_rows(TD, d, kind,
+                                                        gate_zeros):
+    """Column c of V_k X reads only column c of X, and a row whose mask
+    misses a tile is 0 there before and after, so per tile only the
+    active rows matter. Held on the coloured schedule (classes from the
+    mask overlaps), the in-order block grid, the overflow schedule that
+    mixes free and in-order 8-row steps, and free steps whose rows share
+    mask pixels (classes that ignore the overlaps: the snapshot rule);
+    with gate zeros and a row whose V_kk is 0; ragged last tiles."""
+    K = 40
+    rng = np.random.default_rng(TD * 1000 + d)
+    # each row's support: a window of 12-28 columns and a few pixels
+    mask = np.zeros((K, d), bool)
+    for k in range(K):
+        a = rng.integers(0, d - 12)
+        mask[k, a:a + rng.integers(12, 29)] = True
+        mask[k, rng.integers(0, d, 2)] = True
+    X = (np.maximum(rng.standard_normal((K, d)), 0) * mask
+         ).astype(np.float32)
+    F = rng.standard_normal((K, 32)).astype(np.float32)
+    V = (F @ F.T / 32 + np.eye(K)).astype(np.float32)
+    U = (rng.standard_normal((K, d)) + 0.5).astype(np.float32)
+    gate = np.ones(K, np.float32)
+    if gate_zeros:
+        gate[::3] = 0.0
+        V[7, :] = V[:, 7] = 0.0                     # V_kk = 0: frozen
+    if kind == "coloured":
+        adj = coloring.overlap_adjacency(torch.tensor(mask))
+        colors = coloring.greedy_color(adj)
+        order = torch.argsort(colors, stable=True).numpy()
+        U, V, X, mask, gate = (U[order], V[order][:, order], X[order],
+                               mask[order], gate[order])
+        block = 64
+        sched = coloring.class_step_schedule(colors[order], block=block)
+    elif kind == "block grid":
+        block = 16
+        sched = block_grid_schedule(K, block, torch.device("cpu"))
+    elif kind == "mixed":
+        block = 8
+        sched = coloring.class_step_schedule(
+            torch.arange(K, dtype=torch.int32) // 12, block=block, n_cap=2)
+        free = sched[2][:int(sched[3])]
+        assert 0 < int(free.sum()) < len(free)      # both kinds of step
+    else:
+        block = 64
+        sched = coloring.class_step_schedule(
+            (torch.arange(K) * 3 // K).to(torch.int32), block=block)
+    args = [torch.tensor(a) for a in (U, V, X, gate)]
+    want = hals_sweeps_reference(*args, sched, mask=torch.tensor(mask),
+                                 n_iter=3, block=block, relu=True)
+    got = _tile_by_tile(*args, sched, torch.tensor(mask), 3, block, TD)
+    assert bool((want[~torch.tensor(mask)] == 0).all())
+    assert bool(((got - want).abs() <= 1e-5 * (1 + want.abs())).all())
+    if kind == "overlapping":
+        # some free step holds rows that share a mask pixel
+        K_ = len(mask)
+        steps = _step_rows(sched, K_, _rows_per_step(K_, block))
+        assert any(fr and (mask[lo:hi].sum(0) > 1).any()
+                   for lo, hi, fr in steps)
+
+
+def test_kernel_names_stay_readable_by_kernels_ms():
+    """``kernels_ms`` matches device kernel names by substring against the
+    stems of ``cuda_build.KERNELS`` and counts launches from ``LAUNCHES``:
+    no stem may hold another, every kernel needs a count, and every
+    kernel of csrc/ carries exactly one stem."""
+    st = list(stems(cuda_build.KERNELS))
+    assert [a for a in st for b in st if a != b and a in b] == []
+    assert set(cuda_build.KERNELS) <= set(cuda_build.LAUNCHES)
+    names = []
+    for src in sorted(cuda_build.CSRC.glob("*.cu")):
+        names += re.findall(r"__global__\s+void\s+__launch_bounds__"
+                            r"\([^)]*\)\s*(\w+)", src.read_text())
+    assert len(names) >= 8
+    assert [n for n in names if sum(s in n for s in st) != 1] == []
+
+
+def test_compact_capacity_matches_the_kernel():
+    """``hals_kernels.COMPACT_ROWS`` is the kernel's kCap: the capacity
+    ``chip_smoke.py`` builds its at-capacity tile from."""
+    src = (cuda_build.CSRC / "hals_sweeps.cu").read_text()
+    cap = re.search(r"constexpr int kCap = (\d+);", src)
+    assert cap and int(cap.group(1)) == hals_kernels.COMPACT_ROWS >= 64
