@@ -21,20 +21,30 @@ process groups:
     row-sharded image, ties to the lowest index (``argmax``'s rule);
   * :func:`traces_to_neurons` / :func:`traces_to_frames` — the trace
     reshard: K over 'patch' with whole traces (the deconvolution), and
-    back to T over 'frame'.
+    back to T over 'frame';
+  * :func:`broadcast` — a tensor of one rank written into every rank's.
 
 No function here pickles: the model's state travels as tensors only.
 
-Transport: the functions use two collectives, all-reduce and all-gather,
-which both backends carry with CUDA tensors as they are:
+Transport: the functions use three collectives, all-reduce, all-gather
+and broadcast, which both backends carry with CUDA tensors as they are:
 NCCL on the card, gloo through its own host buffers. Gloo aborts the
 process (it does not raise) on all-to-all and on send/recv of CUDA
 tensors, so the halo exchange is an all-gather of the slabs' edge rows;
 and its own CUDA all-gather beat a copy through pinned host buffers made
 here (``scripts_torch/gloo_cuda_probe.py`` measures both), so nothing is
-staged by hand. ``STATS`` counts the bytes each rank hands to the
-collectives, the host seconds spent inside these functions (waiting for
-the other ranks included) and their calls.
+staged by hand. :func:`broadcast` is the set-up's:
+``launch.ResidentMesh`` ships each rank its blocks with it. ``STATS``
+counts the bytes each rank hands to the collectives, the host seconds
+spent inside these functions (waiting for the other ranks included) and
+their calls, in all and by kind (``STATS["kinds"]``: ``all_reduce``,
+``all_gather``, ``broadcast``).
+
+Spans: each collective call is the span ``comm.<kind>``
+(``utils/profiling.py::span``), and the halo exchange and the trace
+reshard are ``comm.halo_rows``, ``comm.traces_to_neurons`` and
+``comm.traces_to_frames`` around theirs; like every span they never
+synchronise, and without a mesh no span opens.
 """
 
 from __future__ import annotations
@@ -46,25 +56,34 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-STATS = {"bytes": 0, "seconds": 0.0, "calls": 0}
+from cnmf_e_tpu_torch.utils.profiling import span
+
+STATS = {"bytes": 0, "seconds": 0.0, "calls": 0, "kinds": {}}
 
 
 def reset_stats() -> None:
-    STATS.update(bytes=0, seconds=0.0, calls=0)
+    STATS.update(bytes=0, seconds=0.0, calls=0, kinds={})
 
 
 class _counted:
-    """Counts one collective call of ``nbytes`` and its host seconds."""
+    """One collective call of ``kind`` handing over ``nbytes``: counted in
+    ``STATS`` with its host seconds, and the span ``comm.<kind>``."""
 
-    def __init__(self, nbytes: int):
+    def __init__(self, kind: str, nbytes: int):
         STATS["bytes"] += nbytes
+        k = STATS["kinds"].setdefault(kind, {"bytes": 0, "calls": 0})
+        k["bytes"] += nbytes
+        k["calls"] += 1
+        self.span = span("comm." + kind)
 
     def __enter__(self):
+        self.span.__enter__()
         self.t0 = time.perf_counter()
 
     def __exit__(self, *exc):
         STATS["seconds"] += time.perf_counter() - self.t0
         STATS["calls"] += 1
+        self.span.__exit__(*exc)
 
 
 def _nbytes(x: torch.Tensor) -> int:
@@ -73,7 +92,7 @@ def _nbytes(x: torch.Tensor) -> int:
 
 def _reduce(x: torch.Tensor, group, op) -> torch.Tensor:
     x = x.contiguous()
-    with _counted(_nbytes(x)):
+    with _counted("all_reduce", _nbytes(x)):
         dist.all_reduce(x, op=op, group=group)
     return x
 
@@ -173,7 +192,7 @@ def all_gather_cat(x: torch.Tensor, dim: int, group,
                   + [0, m - x.shape[dim]])
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
-    with _counted(_nbytes(x)):
+    with _counted("all_gather", _nbytes(x)):
         dist.all_gather(parts, x, group=group)
     return torch.cat([p.narrow(dim, 0, s) for p, s in zip(parts, sizes)],
                      dim=dim)
@@ -192,24 +211,25 @@ def halo_rows(x: torch.Tensor, r: int, mesh,
         return x
     if edge not in ("zeros", "replicate"):
         raise ValueError(f"halo edge {edge!r}")
-    Hp = x.shape[-2]
-    n, p = mesh.n_patch, mesh.p
-    e = min(r, Hp)
-    edges = torch.stack([x[..., :e, :], x[..., Hp - e:, :]])
-    # (n, 2, ..., e, W): every patch rank's top and bottom edge rows
-    allp = all_gather_cat(edges[None], 0, mesh.patch_group)
-    hops = -(-r // e)
-    if edge == "zeros":
-        top = bottom = torch.zeros_like(edges[0])
-    else:
-        top = allp[0, 0][..., :1, :].expand_as(edges[0])
-        bottom = allp[n - 1, 1][..., e - 1:, :].expand_as(edges[0])
-    above = torch.cat([allp[q, 1] if q >= 0 else top
-                       for q in range(p - hops, p)], dim=-2)
-    below = torch.cat([allp[q, 0] if q < n else bottom
-                       for q in range(p + 1, p + 1 + hops)], dim=-2)
-    return torch.cat([above[..., above.shape[-2] - r:, :], x,
-                      below[..., :r, :]], dim=-2)
+    with span("comm.halo_rows"):
+        Hp = x.shape[-2]
+        n, p = mesh.n_patch, mesh.p
+        e = min(r, Hp)
+        edges = torch.stack([x[..., :e, :], x[..., Hp - e:, :]])
+        # (n, 2, ..., e, W): every patch rank's top and bottom edge rows
+        allp = all_gather_cat(edges[None], 0, mesh.patch_group)
+        hops = -(-r // e)
+        if edge == "zeros":
+            top = bottom = torch.zeros_like(edges[0])
+        else:
+            top = allp[0, 0][..., :1, :].expand_as(edges[0])
+            bottom = allp[n - 1, 1][..., e - 1:, :].expand_as(edges[0])
+        above = torch.cat([allp[q, 1] if q >= 0 else top
+                           for q in range(p - hops, p)], dim=-2)
+        below = torch.cat([allp[q, 0] if q < n else bottom
+                           for q in range(p + 1, p + 1 + hops)], dim=-2)
+        return torch.cat([above[..., above.shape[-2] - r:, :], x,
+                          below[..., :r, :]], dim=-2)
 
 
 def traces_to_neurons(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -218,8 +238,9 @@ def traces_to_neurons(x: torch.Tensor, mesh) -> torch.Tensor:
     without a mesh."""
     if mesh is None:
         return x
-    k0, k1 = mesh.neurons(x.shape[0])
-    return all_gather_cat(x[k0:k1], 1, mesh.frame_group)
+    with span("comm.traces_to_neurons"):
+        k0, k1 = mesh.neurons(x.shape[0])
+        return all_gather_cat(x[k0:k1], 1, mesh.frame_group)
 
 
 def traces_to_frames(x: torch.Tensor, T: int, mesh) -> torch.Tensor:
@@ -229,6 +250,16 @@ def traces_to_frames(x: torch.Tensor, T: int, mesh) -> torch.Tensor:
     frames)."""
     if mesh is None:
         return x
-    t0, t1 = mesh.frames(T)
-    return all_gather_cat(x[:, t0:t1], 0, mesh.patch_group)
+    with span("comm.traces_to_frames"):
+        t0, t1 = mesh.frames(T)
+        return all_gather_cat(x[:, t0:t1], 0, mesh.patch_group)
+
+
+def broadcast(x: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """``x`` of the rank ``src`` written into ``x`` on every member of
+    ``group`` (the default group: every rank), in place; ``x`` must be
+    contiguous and shaped alike on every member."""
+    with _counted("broadcast", _nbytes(x)):
+        dist.broadcast(x, src=src, group=group)
+    return x
 
